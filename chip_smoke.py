@@ -14,7 +14,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and int32, the gather with repeated ids; both must match exactly. Then
    CUDA-event times at the main path's shape (1024 ids) for the kernel,
    its plain version and the PyTorch library call, beside the bytes bound.
-4. Parameter server: ``mvt.init(local_workers=4)`` on the card; four
+4. The coalesced scatter against its plain version and against the simple
+   scatter, exactly: buckets 64..16384 (and 65536 for float32), float32,
+   float64 and int32, three id patterns (sorted zipf-unique as word2vec
+   pushes them, all-consecutive runs, random unique), each with sentinel
+   pads and a segment that ends on the sentinel row. Then times of both
+   scatters and ``index_add_`` at the word2vec push shape (a 65,536-slot
+   bucket of sorted zipf ids into 100,001 x 128 fp32), where both scatters
+   and the gather are first held exactly against ``index_add_`` and
+   ``index_select``, and at the PS shape.
+5. Parameter server: ``mvt.init(local_workers=4)`` on the card; four
    worker threads send 1024-row Adds (random ids, duplicates included) and
    1024-row Gets to a 1M x 50 default-updater matrix table (the kernel
    path), then Adds to an AdaGrad matrix table and an array table. Each
@@ -24,7 +33,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    staleness, an int32 table, the array table's device sync) against
    numpy, and the host time of each stage of one Add and one Get with a
    single worker.
-5. One JSON line listing every kernel, then the last line
+6. word2vec at the full width of the bench recipe (vocab 100,000, dim 128,
+   window 5, 5 negatives shared by 8 centres, 32,768-pair chunks, 8192-token
+   blocks, zipf corpus from seed 0): one group-1 ``PSTrainer`` submission on
+   the card against the same submission run by the port on the CPU (same
+   tables, same injected draws), once with each scatter;
+   ``PSTrainer.train`` over group-64 submissions from the same start with
+   ``rows.COALESCE`` off and on in turns (words/s each), then off and on
+   in deterministic mode (end states bitwise equal); a profiled submission; gather, scatter and coalesced
+   scatter each launched over the phase; a ``DeviceTrainer`` corpus step
+   over 40 blocks (words/s, finite loss).
+7. One JSON line listing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
@@ -34,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -42,11 +62,27 @@ import time
 import numpy as np
 import torch
 
+# cuBLAS needs a fixed workspace for the deterministic word2vec runs
+# (torch.use_deterministic_algorithms); set before any cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 ROWS, COLS, BATCH = 1_000_000, 50, 1024   # the reference's matrix perf harness
 WORKERS = 4
 BUCKETS = [64 << k for k in range(9)]      # 64 .. 16384
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12                     # H100 SXM non-tensor fp32, data sheet
+# word2vec: the bench recipe (bench.py bench_ps_word2vec / bench_word2vec)
+W2V = dict(vocab_size=100_000, dim=128, window=5, negatives=5,
+           batch_pairs=32768, block_tokens=8192, sample=0.0, neg_sharing=8)
+W2V_GROUP = 64                             # 8192-token blocks per submission
+W2V_SUBMISSIONS = 4
+W2V_DEVICE_BLOCKS = 40
+# the card against the CPU: index_add_ on the card sums a step's duplicate
+# rows with atomics, in an order that changes from run to run. Over a few
+# group-64 submissions that order alone moves some weights by more than
+# this, so COALESCE off and on are compared in deterministic mode, where
+# they must be bitwise equal.
+W2V_RTOL, W2V_ATOL = 1e-4, 1e-6
 # fp32 sums taken in another order than the mirror's (fused micro-batches,
 # merged duplicates, AdaGrad steps from 4 workers interleaved): a few
 # roundings of values of order 1 to 10
@@ -169,6 +205,195 @@ def kernel_phase(rows, mesh, dev):
                      "bytes": bytes_moved[name]}
     del table, id_sets, deltas
     torch.cuda.empty_cache()
+    return out
+
+
+def w2v_counts(vocab: int) -> np.ndarray:
+    """The bench's zipf word counts: max(1e7 / rank, 5)."""
+    return np.maximum((1e7 / np.arange(1, vocab + 1)).astype(np.int64), 5)
+
+
+def zipf_tokens(rng, shape, vocab: int) -> np.ndarray:
+    """Token ids drawn from the bench's zipf counts (inverse CDF)."""
+    p = w2v_counts(vocab).astype(np.float64)
+    cdf = np.cumsum(p / p.sum())
+    return np.minimum(np.searchsorted(cdf, rng.random(shape)),
+                      vocab - 1).astype(np.int32)
+
+
+def coalesced_ids(rng, bucket: int, n_rows: int, pattern: str):
+    """A push bucket for the coalesced scatter: ``live`` unique ids, the
+    last three of them the rows just below the sentinel so that the segment
+    ending at slot ``live`` ends on the sentinel row, then sentinel pads.
+    Returns (ids, live)."""
+    sentinel = n_rows - 1
+    live = bucket - bucket // 8 - 1          # slot `live` is the first pad
+    body = live - 3
+    ids = np.full(bucket, sentinel, np.int32)
+    if pattern == "zipf":  # the sorted unique tokens of a submission, as
+        # word2vec pushes them: draw until there are enough, then drop
+        # the few extra at random
+        uniq = np.zeros(0, np.int32)
+        while len(uniq) < body:
+            more = zipf_tokens(rng, max(64, body // 8), W2V["vocab_size"])
+            uniq = np.union1d(uniq, more)
+        chosen = np.sort(rng.choice(uniq, body, replace=False))
+    elif pattern == "runs":  # every segment consecutive
+        start = int(rng.integers(0, sentinel - 3 - body))
+        chosen = np.arange(start, start + body)
+    else:  # random unique, unsorted
+        chosen = rng.choice(sentinel - 3, body, replace=False)
+    ids[:body] = chosen
+    ids[body:live] = np.arange(sentinel - 3, sentinel)
+    return ids, live
+
+
+def coalesced_phase(rows, mesh, dev, card: str):
+    """The coalesced scatter against its plain version and the simple
+    scatter, exactly, then times of both scatters at the word2vec push
+    shape and the PS shape. Returns (max |err|, {shape: times})."""
+    rng = np.random.default_rng(3)
+    R = ROWS + 1
+    err = 0.0
+    checked = 0
+    share = {}
+    for np_dtype in (np.float32, np.float64, np.int32):
+        C = mesh.padded_cols(COLS, np_dtype)
+        if np.issubdtype(np_dtype, np.integer):
+            host = rng.integers(-1000, 1000, size=(R, C), dtype=np_dtype)
+        else:
+            host = rng.standard_normal((R, C)).astype(np_dtype)
+        table = torch.from_numpy(host).to(dev)
+        buckets = BUCKETS + ([65536] if np_dtype == np.float32 else [])
+        for B in buckets:
+            for pattern in ("zipf", "runs", "random"):
+                ids, live = coalesced_ids(rng, B, R, pattern)
+                if np.issubdtype(np_dtype, np.integer):
+                    d = rng.integers(-50, 50, size=(B, C), dtype=np_dtype)
+                else:
+                    d = rng.standard_normal((B, C)).astype(np_dtype)
+                d[live:] = 0
+                ids_t = torch.from_numpy(ids).to(dev)
+                d_t = torch.from_numpy(d).to(dev)
+                got = rows.scatter_add_rows_coalesced(table.clone(), ids_t, d_t)
+                want = rows.scatter_add_rows_coalesced_plain(table.clone(), ids_t, d_t)
+                simple = rows.scatter_add_rows(table.clone(), ids_t, d_t)
+                torch.cuda.synchronize()
+                e = (got.double() - want.double()).abs().max().item()
+                err = max(err, e)
+                if not (torch.equal(got, want) and torch.equal(got, simple)):
+                    raise AssertionError(
+                        f"scatter_add_rows_coalesced {np_dtype.__name__} B={B} "
+                        f"{pattern}: max |kernel - plain| = {e}, max |kernel - "
+                        f"simple| = {(got.double() - simple.double()).abs().max().item()}")
+                share.setdefault(pattern, []).append(
+                    float(rows.seg_flags(ids_t).float().mean()))
+                checked += 1
+                del got, want, simple
+        del table
+    print(f"coalesced phase: {checked} (dtype, bucket, pattern) cases, the "
+          f"coalesced scatter equal to index_add_ and to scatter_add_rows "
+          f"(max |err| {err}); flagged segments by pattern "
+          f"{ {k: [round(x, 3) for x in v] for k, v in share.items()} } "
+          f"(buckets {BUCKETS + [65536]} for float32)", flush=True)
+
+    times = {}
+    # the word2vec push: the sorted unique tokens of a group-64 submission
+    # padded to a 65,536-slot bucket, into the 100,001 x 128 input table
+    V, D = W2V["vocab_size"], W2V["dim"]
+    sets = []
+    for _ in range(4):
+        u = np.unique(zipf_tokens(rng, W2V_GROUP * W2V["block_tokens"], V))
+        b = max(64, 1 << int(len(u)).bit_length())
+        ids = np.full(b, V, np.int32)
+        ids[: len(u)] = u
+        sets.append((ids, len(u)))
+    B = max(len(i) for i, _ in sets)
+    sets = [(np.concatenate([i, np.full(B - len(i), V, np.int32)]), n) for i, n in sets]
+    flags = float(np.mean([rows.seg_flags(torch.from_numpy(i)).float().mean().item()
+                           for i, _ in sets]))
+    push_shape_checks(rows, sets, V, D, dev, rng)
+    times["w2v_push"] = time_scatters(
+        rows, torch.zeros((V + 1, D), dtype=torch.float32, device=dev),
+        [torch.from_numpy(i).to(dev) for i, _ in sets],
+        int(np.mean([n for _, n in sets])), dev, rng)
+    times["w2v_push"].update(bucket=B, flagged_share=flags)
+    # the PS Add: 1024 random unique ids into 1M x 52
+    C = mesh.padded_cols(COLS, np.float32)
+    id_sets = [torch.from_numpy(rng.choice(ROWS, BATCH, replace=False).astype(np.int32)).to(dev)
+               for _ in range(256)]
+    times["ps_add"] = time_scatters(
+        rows, torch.zeros((R, C), dtype=torch.float32, device=dev), id_sets,
+        BATCH, dev, rng)
+    times["ps_add"].update(bucket=BATCH, flagged_share=float(np.mean(
+        [rows.seg_flags(i).float().mean().item() for i in id_sets])))
+    for shape, t in times.items():
+        print(f"scatter times at the {shape} shape ({card}): {json.dumps(t)}",
+              flush=True)
+    torch.cuda.empty_cache()
+    return err, times
+
+
+def push_shape_checks(rows, sets, V: int, D: int, dev, rng) -> None:
+    """At the word2vec push shape (each id set: sorted unique ids, then
+    sentinel pads, into a random 100,001 x 128 fp32 table): both scatters
+    equal to ``index_add_`` and the gather equal to ``index_select``,
+    exactly."""
+    table = torch.from_numpy(
+        rng.standard_normal((V + 1, D)).astype(np.float32)).to(dev)
+    checks = 0
+    for ids, live in sets:
+        d = rng.standard_normal((len(ids), D)).astype(np.float32)
+        d[live:] = 0  # sentinel pads carry zero deltas
+        ids_t = torch.from_numpy(ids).to(dev)
+        d_t = torch.from_numpy(d).to(dev)
+        want = rows.scatter_add_rows_plain(table.clone(), ids_t, d_t)
+        for k in (rows.scatter_add_rows_coalesced, rows.scatter_add_rows):
+            got = k(table.clone(), ids_t, d_t)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{k.__name__} at the word2vec push shape (bucket "
+                    f"{len(ids)}, {live} live): max |kernel - index_add_| = "
+                    f"{(got - want).abs().max().item()}")
+            checks += 1
+            del got
+        g = rows.gather_rows(table, ids_t)
+        if not torch.equal(g, rows.gather_rows_plain(table, ids_t)):
+            raise AssertionError(f"gather_rows at the word2vec pull shape "
+                                 f"(bucket {len(ids)}) != index_select")
+        checks += 1
+    print(f"word2vec push shape ({V + 1} x {D} fp32, bucket {len(sets[0][0])}, "
+          f"{len(sets)} id sets): coalesced and simple scatter equal to "
+          f"index_add_, gather equal to index_select ({checks} checks)",
+          flush=True)
+    del table
+
+
+def time_scatters(rows, table, id_sets, n_live: int, dev, rng, iters: int = 200):
+    """CUDA-event ms per call of the coalesced and simple scatters and of
+    index_add_, with the id sets in rotation, beside the bytes bound:
+    ids and deltas read, each live row (and the sentinel) read and written
+    once."""
+    B, C = id_sets[0].shape[0], table.shape[1]
+    deltas = torch.from_numpy(
+        rng.standard_normal((B, C)).astype(np.float32)).to(dev)
+    it = iter(range(1 << 62))
+
+    def ids():
+        return id_sets[next(it) % len(id_sets)]
+
+    row_bytes = C * table.element_size()
+    t_bytes = (4 * B + B * row_bytes + 2 * (n_live + 1) * row_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = n_live * C / FP32_OPS_PER_S * 1e3
+    out = {
+        "coalesced_ms": device_ms(lambda: rows.scatter_add_rows_coalesced(table, ids(), deltas), iters),
+        "plain_ms": device_ms(lambda: rows.scatter_add_rows_coalesced_plain(table, ids(), deltas), iters),
+        "simple_ms": device_ms(lambda: rows.scatter_add_rows(table, ids(), deltas), iters),
+        "index_add_ms": device_ms(lambda: table.index_add_(0, ids(), deltas), iters),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
     return out
 
 
@@ -404,9 +629,197 @@ def host_breakdown(mvt, rows, device: str = "cuda", n: int = 100):
         mvt.shutdown()
 
 
+def numpy_draws(seed: int, window: int, negatives: int):
+    """A PSTrainer draw hook from numpy (the same draws on any device)."""
+    rng = np.random.default_rng(seed)
+
+    def hook(step, t, tg, pool):
+        return {"win": rng.integers(1, window + 1, t),
+                "neg": rng.integers(0, pool, (tg, negatives))}
+
+    return hook
+
+
+def word2vec_phase(mvt, rows, device: str, card: str, w2v=None,
+                   group: int = W2V_GROUP, submissions: int = W2V_SUBMISSIONS,
+                   device_blocks: int = W2V_DEVICE_BLOCKS):
+    """word2vec on the parameter server and on one device at the bench
+    recipe's width. Returns (metrics, the kernels' launch counts over the
+    phase). ``device="cpu"`` with a small ``w2v`` rehearses the phase on
+    the host."""
+    from multiverso_tpu_torch import convert
+    from multiverso_tpu_torch.dashboard import Dashboard
+    from multiverso_tpu_torch.models.vocab import Dictionary
+    from multiverso_tpu_torch.models.word2vec import (
+        DeviceTrainer, PSTrainer, Word2VecConfig, init_params,
+        make_corpus_train_step)
+
+    w2v = dict(W2V, **(w2v or {}))
+    config = Word2VecConfig(**w2v)
+    V, T = config.vocab_size, config.block_tokens
+    d = Dictionary()
+    d.words = [f"w{i}" for i in range(V)]
+    d.counts = w2v_counts(V)
+    rng = np.random.default_rng(0)
+    blocks = [zipf_tokens(rng, T, V) for _ in range(group * submissions)]
+    init = init_params(config, device="cpu")  # numpy draws from config.seed
+    w_in0 = init["w_in"][:V].numpy()
+    w_out0 = init["w_out"][:V].numpy()
+    metrics = {}
+
+    def trainer(dev):
+        mvt.init(device=dev, local_workers=1)
+        tr = PSTrainer(config, d)
+        convert.load_state(tr.input_table, w_in0, {})
+        convert.load_state(tr.output_table, w_out0, {})
+        return tr
+
+    def one_submission(dev, coalesce: bool):
+        rows.COALESCE = coalesce
+        tr = trainer(dev)
+        try:
+            tr.draw_hook = numpy_draws(7, config.window, config.negatives)
+            loss = tr.train_block(blocks[0])
+            return tr.input_table.get(), tr.output_table.get(), loss
+        finally:
+            rows.COALESCE = False
+            mvt.shutdown()
+
+    def train(coalesce: bool, deterministic: bool):
+        rows.COALESCE = coalesce
+        torch.use_deterministic_algorithms(deterministic)
+        tr = trainer(device)
+        try:
+            Dashboard.reset()
+            t0 = time.perf_counter()
+            tr.train(blocks, group=group, log_every_s=1e9)
+            wall = time.perf_counter() - t0  # train() ends on a stats read
+            txn = Dashboard.get("SERVER_PROCESS_TRANSACT")
+            return (tr.input_table.get(), tr.output_table.get(),
+                    tr.words_trained / wall, wall * 1e3 / submissions,
+                    txn.elapse_ms / max(txn.count, 1))
+        finally:
+            rows.COALESCE = False
+            torch.use_deterministic_algorithms(False)
+            mvt.shutdown()
+
+    def profiled_submission():
+        """One group-``group`` submission under torch.profiler, after a
+        warm one."""
+        tr = trainer(device)
+        try:
+            tr.train_block(np.concatenate(blocks[:group]))
+            return profile(lambda: tr.train_block(
+                np.concatenate(blocks[group:2 * group])))
+        finally:
+            mvt.shutdown()
+
+    for k in (rows.gather_rows, rows.scatter_add_rows, rows.scatter_add_rows_coalesced):
+        k.launches = 0
+    # with COALESCE off the pushes take the simple scatter, with it on the
+    # coalesced one; the CPU runs the plain versions either way
+    for coalesce in (False, True):
+        got = one_submission(device, coalesce)
+        want = one_submission("cpu", coalesce)
+        tag = "coalesced" if coalesce else "simple"
+        for name, g, w in zip(("w_in", "w_out"), got[:2], want[:2]):
+            np.testing.assert_allclose(
+                g, w, rtol=W2V_RTOL, atol=W2V_ATOL,
+                err_msg=f"word2vec {name} ({tag} scatter): {device} != cpu")
+        np.testing.assert_allclose(got[2], want[2], rtol=W2V_RTOL)
+        metrics[f"group1_loss_{tag}"] = float(got[2])
+        metrics[f"group1_max_abs_diff_vs_cpu_{tag}"] = diff = max(
+            float(np.abs(g - w).max()) for g, w in zip(got[:2], want[:2]))
+        print(f"word2vec group-1 submission on {device} with the {tag} "
+              f"scatter equals the CPU's (rtol {W2V_RTOL}, atol {W2V_ATOL}; "
+              f"max |diff| {diff}) ({card})", flush=True)
+
+    # as a user runs it, COALESCE off and on in turns (off, on, on, off),
+    # then off and on in deterministic mode (index_add_ sorts instead of
+    # using atomics); every run from the same start
+    turns = [("default", False, False), ("default_coalesced", True, False),
+             ("default_coalesced", True, False), ("default", False, False),
+             ("deterministic", False, True),
+             ("deterministic_coalesced", True, True)]
+    runs = {}
+    for label, coalesce, deterministic in turns:
+        runs.setdefault(label, []).append(train(coalesce, deterministic))
+    simple = runs["deterministic"][0]
+    coalesced = runs["deterministic_coalesced"][0]
+    for name, a, b in zip(("w_in", "w_out"), simple[:2], coalesced[:2]):
+        np.testing.assert_array_equal(b, a, err_msg=f"word2vec {name}: "
+                                      "COALESCE on != off (deterministic)")
+    for label, results in runs.items():
+        for r in results:
+            if not (np.isfinite(r[0]).all() and np.isfinite(r[1]).all()):
+                raise AssertionError(f"word2vec {label}: non-finite tables")
+        metrics[f"ps_words_per_s_{label}"] = [r[2] for r in results]
+        metrics[f"ps_submission_ms_{label}"] = [r[3] for r in results]
+        metrics[f"ps_transaction_ms_{label}"] = [r[4] for r in results]
+    metrics["ps_tokens"] = len(blocks) * T
+    metrics["ps_submissions"] = submissions
+    # what the atomics' order alone does to the weights over the run
+    metrics["ps_max_abs_diff_atomics_vs_deterministic"] = max(
+        float(np.abs(a - b).max())
+        for a, b in zip(runs["default"][0][:2], simple[:2]))
+    launches = {k.__name__: k.launches for k in (
+        rows.gather_rows, rows.scatter_add_rows, rows.scatter_add_rows_coalesced)}
+
+    # the tables-free twin: the corpus step over device_blocks blocks
+    dt = DeviceTrainer(config, d, device=device)
+    step = make_corpus_train_step(config, d, device=dt.device)
+    stack = torch.from_numpy(np.stack(blocks[:device_blocks])).to(dt.device)
+    step(dt.params, dt.generator, stack, config.lr)  # warm
+    if dt.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dt.params, loss = step(dt.params, dt.generator, stack, config.lr)
+    loss = float(loss)  # a device-to-host read: the step has finished
+    wall = time.perf_counter() - t0
+    if not (np.isfinite(loss) and torch.isfinite(dt.params["w_in"]).all()):
+        raise AssertionError(f"DeviceTrainer corpus step diverged (loss {loss})")
+    metrics["device_words_per_s"] = device_blocks * T / wall
+    metrics["device_loss"] = loss
+    metrics["device_profile"] = profile(
+        lambda: float(step(dt.params, dt.generator, stack, config.lr)[1]))
+    del dt, step, stack
+    if submissions > 1:
+        metrics["ps_profile"] = profiled_submission()
+    return metrics, launches
+
+
+def profile(fn, top: int = 6):
+    """Host wall time of ``fn`` under torch.profiler, the device time of
+    the kernels it ran on any thread (their sum: busy time, overlaps
+    aside) and the kernels that took most of it. On the CPU there is no
+    device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0.0) or 0.0
+
+    # kernels only: an operator launched from this thread carries its
+    # kernels' time as well
+    avgs = sorted((e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in avgs) / 1e3
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+            "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3
+                               for e in avgs[:top] if dev_us(e) > 0}}
+
+
 KERNELS = {
     "scatter_add_rows": "multiverso_tpu/ops/pallas_rows.py:172",
     "gather_rows": "multiverso_tpu/ops/pallas_rows.py:107",
+    "scatter_add_rows_coalesced": "multiverso_tpu/ops/pallas_rows.py:296",
 }
 
 
@@ -444,7 +857,15 @@ def main(argv=None) -> int:
     # 3. kernels
     results = kernel_phase(rows, mesh, dev)
 
-    # 4. the parameter server
+    # 4. the coalesced scatter; its main path is the word2vec push
+    err, times = coalesced_phase(rows, mesh, dev, card)
+    push = times["w2v_push"]
+    results["scatter_add_rows_coalesced"] = {
+        "max_abs_err": err, "ms": push["coalesced_ms"],
+        "plain_ms": push["plain_ms"], "library_ms": push["index_add_ms"],
+        "bound_ms": push["bound_ms"], "bound_by": push["bound_by"]}
+
+    # 5. the parameter server
     metrics, launches = ps_phase(mvt, rows, "cuda", args.rounds)
     for k, n in launches.items():
         if n <= 0:
@@ -458,7 +879,19 @@ def main(argv=None) -> int:
     print(f"host breakdown, 1 worker, on {card}: "
           f"{json.dumps(host_breakdown(mvt, rows))}", flush=True)
 
-    # 5. the kernel line, then the verdict
+    # 6. word2vec
+    w2v, w2v_launches = word2vec_phase(mvt, rows, "cuda", card)
+    for k, n in w2v_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k}: no launch on the word2vec path")
+    print(f"word2vec on {card}: {json.dumps(w2v)}", flush=True)
+    print(f"launches over the word2vec phase (six runs of "
+          f"{w2v['ps_submissions']} group-{W2V_GROUP} submissions, three "
+          f"with COALESCE on, plus two group-1 submissions, one with it on): "
+          f"{json.dumps(w2v_launches)}", flush=True)
+    launches["scatter_add_rows_coalesced"] = w2v_launches["scatter_add_rows_coalesced"]
+
+    # 7. the kernel line, then the verdict
     table = []
     for k, where in KERNELS.items():
         r = results[k]

@@ -13,7 +13,7 @@ Public surface (MV_* parity, the part ported so far):
     rank / size / num_workers / num_servers / worker_id / server_id
     worker_id_to_rank / server_id_to_rank / is_master_worker
     set_flag / get_flag / parse_cmd_flags
-    create_table("array" | "matrix") / register_table_type
+    create_table("array" | "matrix" | "kv") / register_table_type
     worker(slot)                   (bind a logical worker context to a thread)
 
 ``init`` puts the tables on ``cuda`` unless the caller asks for the CPU
@@ -30,6 +30,7 @@ from multiverso_tpu_torch import log  # noqa: F401  (re-export)
 from multiverso_tpu_torch.config import get_flag, parse_cmd_flags, set_flag  # noqa: F401
 from multiverso_tpu_torch.dashboard import Dashboard, monitor  # noqa: F401
 from multiverso_tpu_torch.runtime.node import Role  # noqa: F401
+from multiverso_tpu_torch.runtime.programs import clear_programs
 from multiverso_tpu_torch.runtime.zoo import Zoo
 
 __version__ = "0.1.0"
@@ -51,7 +52,10 @@ def init(argv: Optional[Sequence[str]] = None, sync: Optional[bool] = None,
 
 
 def shutdown(finalize_net: bool = True) -> None:
+    """Stop the runtime and forget its named programs: a registered program
+    closes over the tables it was built for."""
     Zoo.instance().stop(finalize_net)
+    clear_programs()
 
 
 def barrier() -> None:
@@ -124,6 +128,7 @@ def worker(local_slot: int) -> Iterator[int]:
 # -- tables -----------------------------------------------------------------
 
 from multiverso_tpu_torch.tables.array_table import ArrayServer, ArrayWorker  # noqa: E402,F401
+from multiverso_tpu_torch.tables.kv_table import KVServer, KVWorker  # noqa: E402,F401
 from multiverso_tpu_torch.tables.matrix_table import MatrixServer, MatrixWorker  # noqa: E402,F401
 from multiverso_tpu_torch.updaters import AddOption, GetOption  # noqa: E402,F401
 
@@ -133,6 +138,7 @@ MatrixTableHandler = MatrixWorker
 _TABLE_TYPES = {
     "array": ArrayWorker,
     "matrix": MatrixWorker,
+    "kv": KVWorker,
 }
 
 

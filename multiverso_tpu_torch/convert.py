@@ -6,17 +6,19 @@ the slicing its checkpoint ``store`` writes (``MatrixServer.store``:
 ``[:, :num_row, :num_col]``; ``ArrayServer.store``: ``data[:size]`` and
 ``[:, :size]``). :func:`load_state` installs such arrays into a table of
 this package, into its own padded layout, so the next Add computes the
-same result in both packages. Nothing here imports the JAX package: the
-caller hands over plain arrays.
+same result in both packages. :func:`word2vec_params` does the same for
+the word2vec parameters of ``init_params`` / ``DeviceTrainer.params``.
+Nothing here imports the JAX package: the caller hands over plain arrays.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
+from multiverso_tpu_torch.parallel import mesh as mesh_lib
 from multiverso_tpu_torch.runtime.zoo import Zoo
 from multiverso_tpu_torch.tables.array_table import ArrayServer
 from multiverso_tpu_torch.tables.matrix_table import MatrixServer
@@ -63,3 +65,21 @@ def load_state(table, data: np.ndarray,
 
     Zoo.instance().server.run_serialized(install)
 
+
+def word2vec_params(w_in: np.ndarray, w_out: np.ndarray,
+                    device="cuda") -> Dict[str, torch.Tensor]:
+    """The JAX package's word2vec parameters (``init_params`` or
+    ``DeviceTrainer.params``, as numpy, sentinel row included) as the
+    port's dict of float32 tensors on ``device`` (``cuda`` unless the CPU
+    is asked for)."""
+    device = mesh_lib.build_device(str(device))
+    out = {}
+    for name, arr in (("w_in", w_in), ("w_out", w_out)):
+        arr = np.asarray(arr)
+        if arr.ndim != 2:
+            raise ValueError(f"word2vec_params: {name} must be 2-D, got "
+                             f"shape {arr.shape}")
+        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(device)
+    if out["w_in"].shape[1] != out["w_out"].shape[1]:
+        raise ValueError("word2vec_params: w_in and w_out widths differ")
+    return out

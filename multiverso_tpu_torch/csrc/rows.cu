@@ -7,8 +7,10 @@
 // allocates nothing and returns cudaGetLastError().
 //
 // Replaces the TPU kernels of multiverso_tpu/ops/pallas_rows.py:
-//   scatter_add_rows  <- _scatter_add_call / _scatter_add_kernel
-//   gather_rows       <- _gather_call / _gather_kernel
+//   scatter_add_rows            <- _scatter_add_call / _scatter_add_kernel
+//   gather_rows                 <- _gather_call / _gather_kernel
+//   scatter_add_rows_coalesced  <- _scatter_add_coalesced_call /
+//                                  _scatter_add_kernel_coalesced / _seg_flags
 // The TPU versions issue one DMA per row from a sequential grid over
 // 64-row groups. Here there is no row group: a 1-D grid covers
 // batch x vectors_per_row, and each thread moves one 16-byte vector of
@@ -91,6 +93,71 @@ gather_rows_kernel(const uint4* __restrict__ table,
                                     : __ldg(table + row * vecs_per_row + v);
 }
 
+// The coalesced scatter. The TPU kernel merged each segment of kSeg slots
+// whose ids are consecutive into ONE kSeg-row DMA, to save descriptor
+// issue cost on the scalar core, with the segment flags computed by a
+// separate XLA pass and scalar-prefetched. Here there are no descriptors:
+// one warp takes one segment, loads its kSeg ids itself and computes the
+// flag from them, so no flags pass runs first. A flagged segment is one
+// contiguous span of kSeg x vecs_per_row 16-byte vectors in the table
+// (and in the deltas), and the lanes stride across it with no per-row
+// address work. An unflagged segment goes row by row, with the bounds
+// skip of scatter_add_rows_kernel. A flagged span that would leave
+// [0, rows) goes row by row too: that is the bounds guard, not a second
+// kernel. Each element still gets exactly one add of its delta, so the
+// result is bitwise that of scatter_add_rows and of index_add_.
+//
+// The unique-live-id contract holds as above: a flagged segment may end
+// on the sentinel row (its slot carries a zero delta), and the racing
+// writes of pad slots put back the bytes they read.
+//
+// What bounds it: bytes, as for scatter_add_rows. What merging can save
+// on this card is per-row address arithmetic and partly used 32-byte
+// sectors where a row is not a multiple of 32 bytes; at 512 B rows a warp
+// already moves whole 128-byte lines, so the expected gain is small.
+constexpr int kSeg = 4;
+constexpr int kWarp = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scatter_add_rows_coalesced_kernel(uint4* __restrict__ table,
+                                  const int32_t* __restrict__ ids,
+                                  const uint4* __restrict__ deltas,
+                                  int64_t rows, int64_t n_segs,
+                                  int vecs_per_row) {
+  const int64_t seg =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
+  if (seg >= n_segs) return;
+  const int lane = threadIdx.x % kWarp;
+  const int32_t* seg_ids = ids + seg * kSeg;
+  const int64_t first = __ldg(seg_ids);
+  bool consecutive = true;
+#pragma unroll
+  for (int k = 1; k < kSeg; ++k) {
+    consecutive = consecutive && __ldg(seg_ids + k) == first + k;
+  }
+  const int span = kSeg * vecs_per_row;
+  const uint4* src = deltas + seg * span;
+  if (consecutive && first >= 0 && first + kSeg <= rows) {
+    uint4* dst = table + first * vecs_per_row;
+    for (int off = lane; off < span; off += kWarp) {
+      uint4 acc = dst[off];
+      add_vec<T>(acc, __ldg(src + off));
+      dst[off] = acc;
+    }
+    return;
+  }
+  for (int off = lane; off < span; off += kWarp) {
+    const int k = off / vecs_per_row;
+    const int64_t row = __ldg(seg_ids + k);
+    if (row < 0 || row >= rows) continue;
+    uint4* dst = table + row * vecs_per_row + (off - k * vecs_per_row);
+    uint4 acc = *dst;
+    add_vec<T>(acc, __ldg(src + off));
+    *dst = acc;
+  }
+}
+
 inline unsigned blocks_for(int64_t total) {
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
 }
@@ -105,6 +172,22 @@ int launch_scatter(void* table, const void* ids, const void* deltas,
         <<<blocks_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             static_cast<uint4*>(table), static_cast<const int32_t*>(ids),
             static_cast<const uint4*>(deltas), rows, batch, vecs_per_row);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_scatter_coalesced(void* table, const void* ids, const void* deltas,
+                             int64_t rows, int64_t batch, int64_t vecs_per_row,
+                             void* stream) {
+  const int64_t n_segs = batch / kSeg;
+  if (n_segs > 0) {
+    scatter_add_rows_coalesced_kernel<T>
+        <<<blocks_for(n_segs * kWarp), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<uint4*>(table), static_cast<const int32_t*>(ids),
+            static_cast<const uint4*>(deltas), rows, n_segs,
+            static_cast<int>(vecs_per_row));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -124,6 +207,21 @@ MVT_SCATTER_ENTRY(f64, double)
 MVT_SCATTER_ENTRY(f16, __half)
 MVT_SCATTER_ENTRY(i32, int32_t)
 MVT_SCATTER_ENTRY(i64, int64_t)
+
+// batch is a multiple of kSeg (the wrapper checks ROW_GROUP % SEG == 0).
+#define MVT_SCATTER_COALESCED_ENTRY(suffix, type)                            \
+  extern "C" int mvt_scatter_add_rows_coalesced_##suffix(                    \
+      void* table, const void* ids, const void* deltas, int64_t rows,        \
+      int64_t batch, int64_t vecs_per_row, void* stream) {                   \
+    return launch_scatter_coalesced<type>(table, ids, deltas, rows, batch,   \
+                                          vecs_per_row, stream);             \
+  }
+
+MVT_SCATTER_COALESCED_ENTRY(f32, float)
+MVT_SCATTER_COALESCED_ENTRY(f64, double)
+MVT_SCATTER_COALESCED_ENTRY(f16, __half)
+MVT_SCATTER_COALESCED_ENTRY(i32, int32_t)
+MVT_SCATTER_COALESCED_ENTRY(i64, int64_t)
 
 // Any dtype: the gather only copies bytes.
 extern "C" int mvt_gather_rows(const void* table, const void* ids, void* out,

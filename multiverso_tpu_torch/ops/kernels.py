@@ -35,7 +35,8 @@ _PTR = ctypes.c_void_p
 #: C entry point -> argument types; every one returns cudaGetLastError().
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "rows": {
-        **{f"mvt_scatter_add_rows_{s}": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR)
+        **{f"mvt_scatter_add_rows{v}_{s}": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR)
+           for v in ("", "_coalesced")
            for s in ("f32", "f64", "f16", "i32", "i64")},
         "mvt_gather_rows": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
     },

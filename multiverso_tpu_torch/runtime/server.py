@@ -83,6 +83,12 @@ class Server:
         device transactions are admissible."""
         return not (self.gates_gets or self.defers_adds)
 
+    @property
+    def supports_named_transact(self) -> bool:
+        """Named (registry-resolved) transactions are admissible exactly
+        when raw ones are."""
+        return self.plain_async
+
     def __init__(self, num_workers: int) -> None:
         self.num_workers = num_workers
         self._tables: Dict[int, object] = {}  # table_id -> ServerTable

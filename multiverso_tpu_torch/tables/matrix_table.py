@@ -17,8 +17,7 @@ staleness tracking (port of ``multiverso_tpu/tables/matrix_table.py``).
 Tables are updated in place (the JAX package donated its buffers), so any
 reply that hands out table state is a copy.
 
-Not yet ported: named transactions (``runtime/programs.py``), checkpoints,
-live migration and the wire proxies.
+Not yet ported: checkpoints, live migration and the wire proxies.
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ from multiverso_tpu_torch import config, log
 from multiverso_tpu_torch.dashboard import monitor
 from multiverso_tpu_torch.ops.rows import ROW_GROUP, gather_rows, scatter_add_rows
 from multiverso_tpu_torch.parallel import mesh as mesh_lib
+from multiverso_tpu_torch.runtime.programs import resolve_program
 from multiverso_tpu_torch.runtime.zoo import Zoo
 from multiverso_tpu_torch.tables.array_table import _make_states, _make_whole_update
 from multiverso_tpu_torch.tables.base import ServerTable, WorkerTable
@@ -154,6 +154,20 @@ class MatrixServer(ServerTable):
         """A linear updater's delta as the row scatter adds it."""
         return -delta if self._negate else delta
 
+    def row_apply_traceable(self):
+        """The per-row update as a function ``(data, states, ids, delta,
+        worker, scalars) -> (data, states)`` for a caller's device
+        transaction. Same semantics as the add path: a linear updater is
+        one in-place row scatter (sign folded in), a stateful updater the
+        row update. ``ids`` must be unique apart from sentinel pads with
+        zero deltas."""
+        if self._linear:
+            def apply_linear(data, states, ids, delta, worker, scalars):
+                return scatter_add_rows(data, ids, self._signed(delta)), states
+
+            return apply_linear
+        return self._row_update
+
     # -- helpers -----------------------------------------------------------
     def _bucket_ids(self, ids: np.ndarray, values: Optional[np.ndarray],
                     ensure_pad: bool = False
@@ -213,6 +227,8 @@ class MatrixServer(ServerTable):
         if isinstance(request[0], str):
             if request[0] == "transact":
                 return self._process_transact(request)
+            if request[0] == "transact_named":
+                return self._process_transact(self._resolve_named(request))
             log.fatal("Matrix.add: the %r request form is not yet ported",
                       request[0])
         row_ids, values, option = request
@@ -290,6 +306,15 @@ class MatrixServer(ServerTable):
         if row_ids.size and (int(row_ids.min()) < 0
                              or int(row_ids.max()) >= self.num_row):
             log.fatal("Matrix.%s: row id out of range [0, %d)", op, self.num_row)
+
+    def _resolve_named(self, request):
+        """Rehydrate a named transaction descriptor into the live form:
+        the program name resolves to this process's registered function,
+        the table ids to its server tables (``runtime/programs.py``)."""
+        _, name, other_ids, args, touched = request
+        server = Zoo.instance().server
+        others = [server.table(tid) for tid in other_ids]
+        return ("transact", resolve_program(name), others, args, touched)
 
     def _process_transact(self, request):
         """Device transaction: ONE dispatcher op that reads several tables'
@@ -518,16 +543,25 @@ class MatrixWorker(WorkerTable):
         ``fn(datas, states, *args) -> (new_datas, new_states, extra)`` over
         the device state of ``[this table, *others]``, with ``extra`` as the
         (device) reply. ``fn`` may update the tensors in place and return
-        them. Raw callables only: named transactions are not yet ported."""
+        them.
+
+        ``fn`` may be a NAME registered with
+        :func:`multiverso_tpu_torch.runtime.programs.register_program`: the
+        request then carries the name and the tables' ids, and the
+        dispatcher resolves both when it runs it.
+
+        Plain async server only: round-gated or deferred servers keep
+        per-table clocks that a cross-table transaction cannot honor."""
         if self.is_sparse:
             log.fatal("device IO is not available on is_sparse tables")
-        if isinstance(fn, str):
-            log.fatal("named transactions are not yet ported; pass a callable")
-        self._require_device_io()
+        named = isinstance(fn, str)
+        if not named:
+            self._require_device_io()  # closures are in-process only
         server = Zoo.instance().server
-        if not getattr(server, "plain_async", False):
+        if not (getattr(server, "plain_async", False)
+                or (named and getattr(server, "supports_named_transact", False))):
             log.fatal("transact_device_async requires the plain async server")
-        other_servers = []
+        other_ids = []
         for o in others:
             st = getattr(o, "_server_table", None)
             if st is None:
@@ -535,9 +569,13 @@ class MatrixWorker(WorkerTable):
                           "table", o)
             if getattr(o, "is_sparse", False) or getattr(st, "is_sparse", False):
                 log.fatal("device IO is not available on is_sparse tables")
-            other_servers.append(st)
-        return super().add_async(("transact", fn, other_servers, tuple(args),
-                                  touched))
+            other_ids.append((o.table_id, st))
+        if named:
+            return super().add_async(
+                ("transact_named", fn, tuple(tid for tid, _ in other_ids),
+                 tuple(args), touched))
+        return super().add_async(("transact", fn, [st for _, st in other_ids],
+                                  tuple(args), touched))
 
     @property
     def sentinel_row(self) -> int:

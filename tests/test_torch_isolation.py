@@ -24,13 +24,17 @@ def _forbidden(module: str) -> bool:
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import json, sys, multiverso_tpu_torch, multiverso_tpu_torch.convert; "
+    # every module of the package, the word2vec app and its tables included
+    code = ("import importlib, json, pkgutil, sys, multiverso_tpu_torch as p; "
+            "[importlib.import_module(m.name) for m in "
+            "pkgutil.walk_packages(p.__path__, 'multiverso_tpu_torch.')]; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, check=True, timeout=120)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "multiverso_tpu_torch" in loaded
+    assert {"multiverso_tpu_torch.models.word2vec", "multiverso_tpu_torch.convert",
+            "multiverso_tpu_torch.tables.kv_table"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -1,0 +1,57 @@
+"""The port's host KV table against the JAX package's.
+
+The same Adds (duplicate keys, fused async Adds, python ints and floats)
+go through both packages' ``create_table("kv", ...)``; Gets, the worker
+cache and the checkpoint bytes compare exactly."""
+
+import io
+
+import numpy as np
+import pytest
+
+import multiverso_tpu as mv
+import multiverso_tpu_torch as mvt
+from multiverso_tpu_torch.config import FLAGS as TORCH_FLAGS
+
+
+@pytest.fixture
+def both():
+    TORCH_FLAGS.reset()
+    mv.init()
+    try:
+        mvt.init(device="cpu")
+        yield
+    finally:
+        mvt.shutdown()
+        TORCH_FLAGS.reset()
+
+
+def _drive(pkg, dtype):
+    table = pkg.create_table("kv", dtype)
+    table.add(3, 5)
+    table.add([1, 3, 3, 9], [2, 1, 1, 4])
+    handles = [table.add_async([7, 1], [1, 1]) for _ in range(3)]
+    for h in handles:
+        table.wait(h)
+    out = [table.get(3), table.get([1, 9, 7, 42]), table.get(), dict(table.raw())]
+    stream = io.BytesIO()
+    table._server_table.store(stream)
+    return table, out, stream.getvalue()
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.float32])
+def test_kv_matches_jax(both, dtype):
+    _, want, want_bytes = _drive(mv, dtype)
+    table, got, got_bytes = _drive(mvt, dtype)
+    assert got == want
+    assert got[2] == {3: 7, 1: 5, 9: 4, 7: 3}
+    assert got_bytes == want_bytes
+    # the checkpoint bytes load back into a fresh server
+    fresh = mvt.KVServer(dtype)
+    fresh.load(io.BytesIO(got_bytes))
+    assert fresh.process_get((None, None)) == got[2]
+
+
+def test_kv_device_backend_not_yet_ported(both):
+    with pytest.raises(mvt.log.FatalError, match="not yet ported"):
+        mvt.create_table("kv", np.float32, capacity=64)

@@ -116,3 +116,97 @@ def test_card_path_raises_instead_of_falling_back(case, monkeypatch):
     assert (rows.scatter_add_rows.launches, rows.gather_rows.launches) == before
     if device == "cpu":
         assert not table.any()
+
+
+# -- the coalesced scatter ------------------------------------------------------
+
+def _coalesced_case():
+    """The input of test_pallas_rows.py::test_coalesced_scatter_matches_simple
+    (seed 7): a contiguous head, a scattered tail and sentinel pads."""
+    rng = np.random.default_rng(7)
+    n_rows, cols = 4096, 128
+    batch = 2 * rows.ROW_GROUP
+    table = rng.normal(size=(n_rows, cols)).astype(np.float32)
+    live = np.unique(np.concatenate(
+        [np.arange(40), rng.choice(np.arange(64, n_rows - 1), 60,
+                                   replace=False)]))
+    pads = np.full(batch - len(live), n_rows - 1, np.int32)
+    ids = np.concatenate([np.sort(live).astype(np.int32), pads])
+    deltas = rng.normal(size=(batch, cols)).astype(np.float32)
+    deltas[len(live):] = 0.0
+    return table, ids, deltas
+
+
+def test_seg_matches_reference():
+    assert (rows.SEG, rows.COALESCE) == (pallas_rows.SEG, pallas_rows.COALESCE)
+
+
+@pytest.mark.parametrize("pattern", ["pallas_case", "runs", "random", "sentinel_end"])
+def test_seg_flags_match_pallas(pattern):
+    rng = np.random.default_rng(3)
+    if pattern == "pallas_case":
+        ids = _coalesced_case()[1]
+    elif pattern == "runs":
+        ids = np.arange(100, 100 + BATCH, dtype=np.int32)
+    elif pattern == "random":
+        ids = rng.choice(SENTINEL, BATCH, replace=False).astype(np.int32)
+    else:  # a run that ends on the sentinel row, then pads
+        ids = np.full(BATCH, SENTINEL, np.int32)
+        ids[:7] = np.arange(SENTINEL - 6, SENTINEL + 1)
+    want = np.asarray(pallas_rows._seg_flags(jnp.asarray(ids)))
+    got = rows.seg_flags(torch.from_numpy(ids))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_coalesced_scatter_matches_pallas():
+    """The port's coalesced path on the CPU (its plain version) against the
+    JAX interpret kernel and the simple scatter: bitwise equal."""
+    table, ids, deltas = _coalesced_case()
+    assert int(rows.seg_flags(torch.from_numpy(ids)).sum()) > 0
+    want = np.asarray(pallas_rows._scatter_add_coalesced_call(
+        jnp.asarray(table), jnp.asarray(ids), jnp.asarray(deltas), True))
+    t = torch.from_numpy(table.copy())
+    out = rows.scatter_add_rows_coalesced(t, torch.from_numpy(ids),
+                                          torch.from_numpy(deltas))
+    assert out is t
+    np.testing.assert_array_equal(out.numpy(), want)
+    simple = rows.scatter_add_rows(torch.from_numpy(table.copy()),
+                                   torch.from_numpy(ids), torch.from_numpy(deltas))
+    np.testing.assert_array_equal(out.numpy(), simple.numpy())
+
+
+def test_coalesce_flag_routes_scatter(monkeypatch):
+    """rows.COALESCE is read at every call: set, scatter_add_rows goes to
+    the coalesced scatter; the ROW_GROUP % SEG guard refuses a group that
+    does not split into segments."""
+    table, ids, deltas = _coalesced_case()
+    calls = []
+    plain = rows.scatter_add_rows_coalesced_plain
+    monkeypatch.setattr(rows, "scatter_add_rows_coalesced_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    args = (torch.from_numpy(table), torch.from_numpy(ids), torch.from_numpy(deltas))
+    rows.scatter_add_rows(*args)
+    assert calls == []
+    monkeypatch.setattr(rows, "COALESCE", True)
+    rows.scatter_add_rows(*args)
+    assert calls == [1]
+    monkeypatch.setattr(rows, "ROW_GROUP", 66)
+    with pytest.raises(ValueError, match="ROW_GROUP"):
+        rows.scatter_add_rows(*args)
+
+
+def test_coalesced_card_path_raises_instead_of_falling_back(monkeypatch):
+    table = torch.zeros((128, 16))
+    ids = torch.zeros(rows.ROW_GROUP, dtype=torch.int32)
+    deltas = torch.ones((rows.ROW_GROUP, 16))
+    monkeypatch.setattr(rows, "_on_card", lambda op, *t: True)
+    monkeypatch.setattr(kernels, "load", _refuse_build)
+    plain = []
+    monkeypatch.setattr(rows, "scatter_add_rows_coalesced_plain",
+                        lambda *a: plain.append(a))
+    before = rows.scatter_add_rows_coalesced.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        rows.scatter_add_rows_coalesced(table, ids, deltas)
+    assert plain == [] and rows.scatter_add_rows_coalesced.launches == before
+    assert not table.any()

@@ -300,3 +300,70 @@ def test_multi_worker_end_to_end(both4):
     np.testing.assert_allclose(torch_final, jax_final, rtol=1e-5, atol=1e-5)
     assert TorchDashboard.counter_value("APPLY_FUSED_CALLS") >= 1
     assert TorchDashboard.counter_value("APPLY_BATCHED_MSGS") >= 2
+
+
+@pytest.mark.parametrize("updater", ["default", "sgd", "adagrad"])
+def test_named_transaction_row_apply_matches(both, updater):
+    """A program registered by name runs as a device transaction and
+    applies rows through the table's row_apply_traceable: linear updaters
+    as one row scatter (sign folded in), stateful ones as the row update.
+    Both packages end with the same table."""
+    from multiverso_tpu.runtime import programs as jprograms
+    from multiverso_tpu_torch.runtime import programs as tprograms
+    import jax.numpy as jnp
+    import torch
+
+    rng = np.random.default_rng(4)
+    n_row, n_col = 100, 6
+    init = rng.normal(size=(n_row, n_col)).astype(np.float32)
+    ids = np.full(64, n_row, np.int32)  # a bucket of 64, pads on the sentinel
+    ids[:20] = rng.choice(n_row, 20, replace=False)
+    delta = np.zeros((64, n_col), np.float32)
+    delta[:20] = rng.normal(size=(20, n_col))
+
+    def run(pkg, programs, pad, asarray):
+        a = pkg.create_table("matrix", n_row, n_col, np.float32,
+                             updater_type=updater, init_value=init)
+        b = pkg.create_table("matrix", n_row, n_col, np.float32)
+        srv = a._server_table
+        apply = srv.row_apply_traceable()
+        worker, scalars = srv._option_consts(pkg.AddOption(learning_rate=0.3))
+
+        def fn(datas, states, ids_d, delta_d):
+            data, st = apply(datas[0], states[0], ids_d,
+                             pad(delta_d, srv.padded_cols), worker, scalars)
+            return [data, datas[1]], [st, states[1]], None
+
+        name = programs.register_program(f"test.rows/{pkg.__name__}", fn)
+        assert name in programs.registered_programs()
+        a.wait(a.transact_device_async(name, [b], args=(asarray(ids), delta)))
+        return a.get(), b.get()
+
+    want = run(mv, jprograms, lambda d, pc: jnp.pad(
+        jnp.asarray(d), ((0, 0), (0, pc - n_col))), jnp.asarray)
+    got = run(mvt, tprograms, lambda d, pc: torch.nn.functional.pad(
+        torch.from_numpy(d), (0, pc - n_col)), torch.from_numpy)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-7)
+    assert not np.allclose(got[0], init)
+    with pytest.raises(mvt.log.FatalError, match="unknown device program"):
+        tprograms.resolve_program("test.no-such-program")
+
+
+def test_shutdown_clears_named_programs():
+    """A registered program closes over its tables; ``mvt.shutdown`` drops
+    it so a stopped runtime's tables are not kept alive."""
+    from multiverso_tpu_torch.runtime import programs as tprograms
+
+    TORCH_FLAGS.reset()
+    mvt.init(device="cpu")
+    try:
+        t = mvt.create_table("matrix", 10, 4)
+        tprograms.register_program("test.holds-a-table", lambda *a: t)
+        assert "test.holds-a-table" in tprograms.registered_programs()
+    finally:
+        mvt.shutdown()
+        TORCH_FLAGS.reset()
+    assert tprograms.registered_programs() == []
+    with pytest.raises(mvt.log.FatalError, match="unknown device program"):
+        tprograms.resolve_program("test.holds-a-table")
