@@ -22,7 +22,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    scatters and ``index_add_`` at the word2vec push shape (a 65,536-slot
    bucket of sorted zipf ids into 100,001 x 128 fp32), where both scatters
    and the gather are first held exactly against ``index_add_`` and
-   ``index_select``, and at the PS shape.
+   ``index_select``, and at the PS shape; the gather and ``index_select``
+   at the staged word2vec pull shape (the same 65,536-slot buckets). Each
+   kernel's floor: its CUDA-event time at the 64-slot bucket.
 5. Parameter server: ``mvt.init(local_workers=4)`` on the card; four
    worker threads send 1024-row Adds (random ids, duplicates included) and
    1024-row Gets to a 1M x 50 default-updater matrix table (the kernel
@@ -43,7 +45,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    in deterministic mode (end states bitwise equal); a profiled submission; gather, scatter and coalesced
    scatter each launched over the phase; a ``DeviceTrainer`` corpus step
    over 40 blocks (words/s, finite loss).
-7. One JSON line listing every kernel, then the last line
+7. The consistency servers: the PS phase's 1M x 50 table and four worker
+   threads, each round one 1024-row Add and then one 1024-row Get, under
+   ``-sync``, ``-ssp_staleness=2`` and ``-deterministic`` (twice, the
+   second run with jittered workers). Every Get also reads one counter row
+   per worker, which holds the contract: under BSP each round's Get equals
+   the host mirror after exactly that many rounds of every worker; under
+   SSP no worker is read more than 2 rounds behind. BSP and SSP end equal
+   to the mirror (rtol 1e-6), the two deterministic runs bitwise equal.
+8. word2vec's staged path (``get_device_async`` -> step ->
+   ``add_device_async``) at the bench recipe's width: ``-sync`` with one
+   worker (card against CPU, then timed), ``-ssp_staleness=2`` with two
+   workers on disjoint blocks, ``-deterministic`` twice (the drift the
+   step's ``index_add_`` atomics leave between two runs).
+9. Logistic regression on synthetic data: the CTR shape (39 active hashed
+   features of 2^24, minibatch 256) through the sparse table (sgd) and
+   the sparse FTRL table, and MNIST's 784 features through the array
+   table (10-class softmax) and the dense FTRL table; each card run
+   against the CPU on one minibatch, then timed. Phases 7-9 print the
+   scatter and gather launch counts over the phase; 7 and 8 need both.
+10. One JSON line listing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
@@ -87,6 +108,20 @@ W2V_RTOL, W2V_ATOL = 1e-4, 1e-6
 # merged duplicates, AdaGrad steps from 4 workers interleaved): a few
 # roundings of values of order 1 to 10
 RTOL, ATOL = 1e-5, 1e-5
+# the consistency servers against the float64 mirror: a row takes a few
+# linear Adds of order 1, summed in float32 in arrival order
+MODES = {"bsp": dict(sync=True), "ssp2": dict(ssp_staleness=2),
+         "deterministic": dict(deterministic=True)}
+MODE_ROUNDS = 32
+MODE_RTOL, MODE_ATOL = 1e-6, 1e-6
+STAGED_BLOCKS = 8                          # 8192-token blocks per worker
+# logistic regression: Criteo's 13 integer + 26 categorical fields hashed
+# into 2^24 keys; MNIST's 784 features
+CTR_KEYS, CTR_FIELDS = 1 << 24, 39
+MNIST_FEATURES = 784
+LR_BATCHES = 32
+LR_RTOL, LR_ATOL = 1e-5, 1e-6
+JOIN_S = 600
 
 
 def run(cmd):
@@ -318,6 +353,12 @@ def coalesced_phase(rows, mesh, dev, card: str):
         [torch.from_numpy(i).to(dev) for i, _ in sets],
         int(np.mean([n for _, n in sets])), dev, rng)
     times["w2v_push"].update(bucket=B, flagged_share=flags)
+    # the staged word2vec pull: the same buckets gathered from 100,001 x 128
+    times["w2v_pull"] = time_gather(
+        rows, torch.zeros((V + 1, D), dtype=torch.float32, device=dev),
+        [torch.from_numpy(i).to(dev) for i, _ in sets],
+        int(np.mean([n for _, n in sets])))
+    times["w2v_pull"].update(bucket=B)
     # the PS Add: 1024 random unique ids into 1M x 52
     C = mesh.padded_cols(COLS, np.float32)
     id_sets = [torch.from_numpy(rng.choice(ROWS, BATCH, replace=False).astype(np.int32)).to(dev)
@@ -394,6 +435,56 @@ def time_scatters(rows, table, id_sets, n_live: int, dev, rng, iters: int = 200)
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     }
+    return out
+
+
+def time_gather(rows, table, id_sets, n_live: int, iters: int = 200):
+    """CUDA-event ms per call of the gather, its plain version and
+    ``index_select``, with the id sets in rotation, beside the bytes bound:
+    ids read, each live row (and the sentinel) read once, the output
+    written once."""
+    B, C = id_sets[0].shape[0], table.shape[1]
+    it = iter(range(1 << 62))
+
+    def ids():
+        return id_sets[next(it) % len(id_sets)]
+
+    row_bytes = C * table.element_size()
+    return {
+        "gather_ms": device_ms(lambda: rows.gather_rows(table, ids()), iters),
+        "plain_ms": device_ms(lambda: rows.gather_rows_plain(table, ids()), iters),
+        "index_select_ms": device_ms(lambda: table.index_select(0, ids()), iters),
+        "bound_ms": (4 * B + (n_live + 1) * row_bytes + B * row_bytes)
+        / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+    }
+
+
+def floor_times(rows, mesh, dev, iters: int = 400):
+    """Each kernel's floor: CUDA-event ms per call at the smallest bucket,
+    64 unique random ids into the PS phase's 1M x 52 fp32 table, beside
+    the library call on the same ids."""
+    rng = np.random.default_rng(5)
+    C = mesh.padded_cols(COLS, np.float32)
+    table = torch.zeros((ROWS + 1, C), dtype=torch.float32, device=dev)
+    id_sets = [torch.from_numpy(rng.choice(ROWS, 64, replace=False)
+                                .astype(np.int32)).to(dev) for _ in range(256)]
+    deltas = torch.from_numpy(rng.standard_normal((64, C)).astype(np.float32)).to(dev)
+    it = iter(range(1 << 62))
+
+    def ids():
+        return id_sets[next(it) % 256]
+
+    out = {
+        "scatter_add_rows": device_ms(lambda: rows.scatter_add_rows(table, ids(), deltas), iters),
+        "gather_rows": device_ms(lambda: rows.gather_rows(table, ids()), iters),
+        "scatter_add_rows_coalesced": device_ms(
+            lambda: rows.scatter_add_rows_coalesced(table, ids(), deltas), iters),
+        "index_add_": device_ms(lambda: table.index_add_(0, ids(), deltas), iters),
+        "index_select": device_ms(lambda: table.index_select(0, ids()), iters),
+    }
+    del table
+    torch.cuda.empty_cache()
     return out
 
 
@@ -816,8 +907,355 @@ def profile(fn, top: int = 6):
                                for e in avgs[:top] if dev_us(e) > 0}}
 
 
+def join_workers(n: int, fn, timeout: float = JOIN_S) -> None:
+    """Run ``fn(slot)`` on n threads; fail, never hang, if one is still
+    running after ``timeout`` seconds, and re-raise the first error."""
+    errors = []
+
+    def guarded(slot):
+        try:
+            fn(slot)
+        except BaseException as exc:  # reported by the calling thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=guarded, args=(s,), daemon=True)
+               for s in range(n)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + timeout
+    for t in threads:
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError(f"worker threads still running after {timeout} s")
+    if errors:
+        raise errors[0]
+
+
+def stop_runtime(mvt) -> None:
+    """Shut the port down and reset its flags: they stay set across
+    ``shutdown``, and a later bare ``init`` would inherit a gated server."""
+    from multiverso_tpu_torch.config import FLAGS
+    mvt.shutdown()
+    FLAGS.reset()
+
+
+def mode_batches(seed: int, w: int, rounds: int, num_row: int, num_col: int,
+                 batch: int):
+    """Worker ``w``'s rounds: (Add ids, Add values, Get ids). Each Add puts
+    1.0 on the worker's counter row ``w`` and random normal values on
+    random rows (duplicates included) past the counter rows; each Get
+    reads every counter row, then random rows."""
+    rng = np.random.default_rng([seed, w, 2])
+    for _ in range(rounds):
+        ids = np.concatenate([[w], rng.integers(WORKERS, num_row, batch - 1)])
+        vals = rng.standard_normal((batch, num_col), dtype=np.float32)
+        vals[0] = 1.0
+        gids = np.concatenate([np.arange(WORKERS),
+                               rng.integers(0, num_row, batch - WORKERS)])
+        yield ids.astype(np.int32), vals, gids.astype(np.int32)
+
+
+def modes_phase(mvt, rows, device: str, mode: str, rounds: int = MODE_ROUNDS,
+                num_row: int = ROWS, num_col: int = COLS, batch: int = BATCH,
+                jitter_s: float = 0.0, seed: int = 0):
+    """Four worker threads under one consistency server (``MODES[mode]``),
+    each round one 1024-row Add and then one 1024-row Get on a default
+    matrix table; each worker ends with ``finish_train``. Checks every Get's
+    counter rows against the server's contract and, under BSP, every Get
+    against the host mirror after exactly its round. Returns (metrics, the
+    final table, the kernels' launch counts over the drive)."""
+    from multiverso_tpu_torch.dashboard import Dashboard
+
+    mvt.init(device=device, local_workers=WORKERS, **MODES[mode])
+    try:
+        server = mvt.Zoo.instance().server
+        table = mvt.create_table("matrix", num_row, num_col)
+        gets, lat = {}, {"add": [], "get": []}
+
+        def work(w):
+            sleep = np.random.default_rng([seed, w, 3]).uniform(0, jitter_s, rounds)
+            with mvt.worker(w):
+                for r, (ids, vals, gids) in enumerate(
+                        mode_batches(seed, w, rounds, num_row, num_col, batch)):
+                    if jitter_s:
+                        time.sleep(sleep[r])
+                    t0 = time.perf_counter()
+                    table.add(vals, row_ids=ids)
+                    t1 = time.perf_counter()
+                    gets[(w, r)] = table.get(gids)
+                    lat["add"].append(t1 - t0)
+                    lat["get"].append(time.perf_counter() - t1)
+                table.finish_train()
+
+        for k in (rows.gather_rows, rows.scatter_add_rows):
+            k.launches = 0
+        Dashboard.reset()
+        t0 = time.perf_counter()
+        join_workers(WORKERS, work)
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches
+                    for k in (rows.gather_rows, rows.scatter_add_rows)}
+        with mvt.Zoo.instance().admin():  # past every round, outside the clocks
+            final = table.get()
+        clocks = ([list(server._add_clock[table.table_id]),
+                   list(server._get_clock[table.table_id])]
+                  if hasattr(server, "_add_clock") else None)
+        gate = Dashboard.histogram("SYNC_GATE_WAIT_SECONDS")
+        stale = {w: Dashboard.gauge(f"SSP_STALENESS_W{w}").value
+                 for w in range(WORKERS)} if mode == "ssp2" else None
+    finally:
+        stop_runtime(mvt)
+
+    # the contract, on the counter rows of every Get
+    lag = 0
+    for (w, r), got in gets.items():
+        if got.shape != (batch, num_col) or not np.isfinite(got).all():
+            raise AssertionError(f"{mode}: bad Get reply {got.shape}")
+        seen = got[:WORKERS, 0]
+        if mode == "bsp":
+            ok = (seen == r + 1).all()
+        elif mode == "ssp2":
+            ok = seen[w] == r + 1 and (seen >= r + 1 - 2).all() and (seen <= rounds).all()
+        else:
+            ok = ((seen >= 0) & (seen <= rounds) & (seen == np.round(seen))).all()
+        if not ok or not (got[:WORKERS] == got[:WORKERS, :1]).all():
+            raise AssertionError(f"{mode}: worker {w}'s round-{r + 1} Get read "
+                                 f"counter rows {seen.tolist()}")
+        lag = max(lag, int(r + 1 - seen.min()))
+    # the host mirror, round by round; under BSP each Get equals it
+    mirror = np.zeros((num_row, num_col), np.float64)
+    per_worker = [list(mode_batches(seed, w, rounds, num_row, num_col, batch))
+                  for w in range(WORKERS)]
+    for r in range(rounds):
+        for w in range(WORKERS):
+            ids, vals, _ = per_worker[w][r]
+            np.add.at(mirror, ids, vals)
+        if mode == "bsp":
+            for w in range(WORKERS):
+                gids = per_worker[w][r][2]
+                np.testing.assert_allclose(
+                    gets[(w, r)], mirror[gids], rtol=MODE_RTOL, atol=MODE_ATOL,
+                    err_msg=f"bsp: worker {w}'s round-{r + 1} Get != the "
+                    f"mirror after {r + 1} rounds")
+    if final.shape != mirror.shape or not np.isfinite(final).all():
+        raise AssertionError(f"{mode}: final table {final.shape} or non-finite")
+    if mode != "deterministic":
+        np.testing.assert_allclose(final, mirror, rtol=MODE_RTOL, atol=MODE_ATOL,
+                                   err_msg=f"{mode}: final table != host mirror")
+    max_diff = float(np.abs(final - mirror).max())
+    adds = lat["add"]
+    metrics = {
+        "adds": len(adds), "gets": len(lat["get"]), "seconds": wall,
+        "adds_per_s": len(adds) / wall,
+        "add_p50_us": float(np.percentile(adds, 50) * 1e6),
+        "add_p99_us": float(np.percentile(adds, 99) * 1e6),
+        "get_p50_us": float(np.percentile(lat["get"], 50) * 1e6),
+        "get_p99_us": float(np.percentile(lat["get"], 99) * 1e6),
+        "gate_waits": gate.count, "gate_wait_p50_ms": gate.p50 * 1e3,
+        "gate_wait_max_ms": gate.max * 1e3,
+        "max_rounds_behind_read": lag, "clocks": clocks,
+        "ssp_staleness_gauges": stale,
+        "max_abs_diff_vs_mirror": max_diff,
+    }
+    return metrics, final, launches
+
+
+def open_rounds(trainer) -> None:
+    """BSP serves a worker's i-th Get after every worker's i-th Add: open
+    the first round of both word2vec tables with a zero Add (call from
+    each worker's context before it trains)."""
+    for table in (trainer.input_table, trainer.output_table):
+        table.add(np.zeros((1, table.num_col), np.float32), row_ids=[0])
+
+
+def staged_word2vec_phase(mvt, rows, device: str, card: str, w2v=None,
+                          blocks_per_worker: int = STAGED_BLOCKS):
+    """``PSTrainer.train_block`` on the staged path (the gated and
+    deterministic servers refuse the fused transaction) at the bench
+    recipe's width, from ``mvt.worker`` threads each followed by
+    ``finish_train``. Returns (metrics, the kernels' launch counts over the
+    card's runs)."""
+    from multiverso_tpu_torch import convert
+    from multiverso_tpu_torch.models.vocab import Dictionary
+    from multiverso_tpu_torch.models.word2vec import (PSTrainer, Word2VecConfig,
+                                                      init_params)
+
+    config = Word2VecConfig(**dict(W2V, **(w2v or {})))
+    V, T = config.vocab_size, config.block_tokens
+    d = Dictionary()
+    d.words = [f"w{i}" for i in range(V)]
+    d.counts = w2v_counts(V)
+    rng = np.random.default_rng(4)
+    blocks = [zipf_tokens(rng, T, V) for _ in range(2 * blocks_per_worker)]
+    init = init_params(config, device="cpu")
+    w_in0, w_out0 = init["w_in"][:V].numpy(), init["w_out"][:V].numpy()
+
+    def run(dev, mode, workers, per_worker):
+        flags = MODES[mode]
+        mvt.init(device=dev, local_workers=workers, **flags)
+        try:
+            tr = PSTrainer(config, d)
+            if tr._can_transact():
+                raise AssertionError(f"{mode}: the fused transaction was "
+                                     "admitted under a gated server")
+            convert.load_state(tr.input_table, w_in0, {})
+            convert.load_state(tr.output_table, w_out0, {})
+            tr.draw_hook = numpy_draws(11, config.window, config.negatives)
+            if flags.get("sync"):
+                for slot in range(workers):
+                    with mvt.worker(slot):
+                        open_rounds(tr)
+            losses = []
+
+            def work(slot):
+                with mvt.worker(slot):
+                    for b in blocks[slot::workers][:per_worker]:
+                        losses.append(tr.train_block(b))
+                    tr.input_table.finish_train()
+                    tr.output_table.finish_train()
+
+            t0 = time.perf_counter()
+            join_workers(workers, work)
+            wall = time.perf_counter() - t0  # train_block ends on a stats read
+            with mvt.Zoo.instance().admin():
+                w_in, w_out = tr.input_table.get(), tr.output_table.get()
+                words = int(tr.count_table.get(0))
+            if words != workers * per_worker * T:
+                raise AssertionError(f"{mode}: word count {words}")
+            if not (np.isfinite(w_in).all() and np.isfinite(w_out).all()
+                    and np.isfinite(losses).all()):
+                raise AssertionError(f"{mode}: non-finite tables or loss")
+            return w_in, w_out, losses, words / wall
+        finally:
+            stop_runtime(mvt)
+
+    metrics = {}
+    # BSP, one worker: the card against the CPU over two blocks, same draws
+    got = run(device, "bsp", 1, 2)
+    want = run("cpu", "bsp", 1, 2)
+    for name, g, w in zip(("w_in", "w_out"), got[:2], want[:2]):
+        np.testing.assert_allclose(g, w, rtol=W2V_RTOL, atol=W2V_ATOL,
+                                   err_msg=f"staged word2vec {name} under "
+                                   f"-sync: {device} != cpu")
+    np.testing.assert_allclose(got[2], want[2], rtol=W2V_RTOL)
+    metrics["bsp_max_abs_diff_vs_cpu"] = diff = max(
+        float(np.abs(g - w).max()) for g, w in zip(got[:2], want[:2]))
+    print(f"staged word2vec under -sync, 2 blocks on {device} equal the CPU's "
+          f"(rtol {W2V_RTOL}, atol {W2V_ATOL}; max |diff| {diff}) ({card})",
+          flush=True)
+
+    for k in (rows.gather_rows, rows.scatter_add_rows):
+        k.launches = 0
+    bsp = run(device, "bsp", 1, blocks_per_worker)
+    ssp = run(device, "ssp2", 2, blocks_per_worker)
+    det = [run(device, "deterministic", 1, blocks_per_worker) for _ in range(2)]
+    launches = {k.__name__: k.launches for k in (rows.gather_rows, rows.scatter_add_rows)}
+    metrics.update({
+        "bsp_1worker_words_per_s": bsp[3], "bsp_losses": bsp[2],
+        "ssp2_2workers_words_per_s": ssp[3],
+        "deterministic_words_per_s": [r[3] for r in det],
+        # the step's index_add_ sums duplicate rows with atomics: what that
+        # order alone leaves between two -deterministic runs
+        "deterministic_drift_max_abs": max(
+            float(np.abs(a - b).max()) for a, b in zip(det[0][:2], det[1][:2])),
+        "deterministic_bitwise_equal": all(
+            np.array_equal(a, b) for a, b in zip(det[0][:2], det[1][:2])),
+        "tokens_per_worker": blocks_per_worker * T,
+    })
+    return metrics, launches
+
+
+def ctr_data(rng, n: int, key_space: int = CTR_KEYS, fields: int = CTR_FIELDS):
+    """Synthetic click logs in the shape of the Criteo data: one active
+    feature per field (zipf-distributed values hashed with the field into
+    ``key_space``), value 1.0, labels drawn from a hidden logistic model of
+    the keys."""
+    values = np.minimum(rng.zipf(1.3, (n, fields)), 1 << 20).astype(np.int64)
+    keys = (values * 2654435761 + np.arange(fields) * 97_531) % key_space
+    hidden = ((keys * 2246822519) % 2001) / 1000.0 - 1.0
+    p = 1.0 / (1.0 + np.exp(-2.0 * hidden.sum(axis=1) / np.sqrt(fields)))
+    return {"idx": keys.astype(np.int32),
+            "val": np.ones((n, fields), np.float32),
+            "y": (rng.random(n) < p).astype(np.int32)}
+
+
+def digits_data(rng, n: int, features: int = MNIST_FEATURES, classes: int = 10):
+    """Synthetic 28 x 28 digits: a noisy copy of one of ten templates."""
+    templates = rng.random((classes, features), dtype=np.float32)
+    y = rng.integers(0, classes, n)
+    x = np.clip(templates[y] + 0.3 * rng.standard_normal((n, features)), 0, 1)
+    return {"x": x.astype(np.float32), "y": y.astype(np.int32)}
+
+
+def logreg_runs(ctr_keys: int = CTR_KEYS, features: int = MNIST_FEATURES):
+    """The four table choices of ``PSLogReg``: (config, data kind)."""
+    from multiverso_tpu_torch.models.logreg import LogRegConfig
+    ctr = dict(input_size=ctr_keys, sparse=True, max_nnz=CTR_FIELDS, use_ps=True)
+    ftrl = dict(alpha=0.5, lambda1=0.5)  # examples/ftrl_ctr.py
+    # 784 dense features in [0, 1] move every coordinate at once: the
+    # sparse example's step makes the dense model diverge
+    dense_ftrl = dict(alpha=0.02, lambda1=0.5)
+    return {
+        "ctr_sparse_sgd": (LogRegConfig(objective="sigmoid", lr=0.1, **ctr), "ctr"),
+        "ctr_sparse_ftrl": (LogRegConfig(objective="ftrl", sync_frequency=4,
+                                         pipeline=True, **ctr, **ftrl), "ctr"),
+        "mnist_array_softmax": (LogRegConfig(
+            input_size=features, output_size=10, objective="softmax", lr=0.1,
+            use_ps=True), "digits"),
+        "mnist_ftrl_binary": (LogRegConfig(
+            input_size=features, objective="ftrl", use_ps=True,
+            sync_frequency=4, pipeline=True, **dense_ftrl), "binary"),
+    }
+
+
+def logreg_phase(mvt, rows, device: str, card: str, batches: int = LR_BATCHES,
+                 ctr_keys: int = CTR_KEYS, features: int = MNIST_FEATURES):
+    """``PSLogReg`` through each table choice: one minibatch on the card
+    against the CPU, then ``batches`` minibatches timed on the card.
+    Returns (metrics, the kernels' launch counts over the card's runs)."""
+    from multiverso_tpu_torch.models.logreg import PSLogReg, minibatches
+
+    rng = np.random.default_rng(6)
+    n = batches * 256
+    digits = digits_data(rng, n, features)
+    data = {"ctr": ctr_data(rng, n, ctr_keys),
+            "digits": digits,
+            "binary": {"x": digits["x"], "y": (digits["y"] >= 5).astype(np.int32)}}
+
+    def run(dev, config, kind, n_batches):
+        mvt.init(device=dev, local_workers=1)
+        try:
+            model = PSLogReg(config)
+            mbs = list(minibatches(data[kind], config.minibatch))[:n_batches]
+            t0 = time.perf_counter()
+            losses = [model.update(b) for b in mbs]
+            model.finish()
+            wall = time.perf_counter() - t0
+            return model.weights(), losses, len(mbs) * config.minibatch / wall
+        finally:
+            stop_runtime(mvt)
+
+    metrics = {}
+    for k in (rows.gather_rows, rows.scatter_add_rows):
+        k.launches = 0
+    for name, (config, kind) in logreg_runs(ctr_keys, features).items():
+        got, want = run(device, config, kind, 1), run("cpu", config, kind, 1)
+        np.testing.assert_allclose(got[0], want[0], rtol=LR_RTOL, atol=LR_ATOL,
+                                   err_msg=f"logreg {name}: {device} != cpu")
+        np.testing.assert_allclose(got[1], want[1], rtol=LR_RTOL)
+        w, losses, ex_s = run(device, config, kind, batches)
+        if not (np.isfinite(w).all() and np.isfinite(losses).all()):
+            raise AssertionError(f"logreg {name}: non-finite weights or loss")
+        metrics[name] = {
+            "max_abs_diff_vs_cpu": float(np.abs(got[0] - want[0]).max()),
+            "examples_per_s": ex_s, "first_loss": losses[0],
+            "last_loss": losses[-1], "minibatches": len(losses)}
+    launches = {k.__name__: k.launches for k in (rows.gather_rows, rows.scatter_add_rows)}
+    return metrics, launches
+
+
 KERNELS = {
-    "scatter_add_rows": "multiverso_tpu/ops/pallas_rows.py:172",
+    "scatter_add_rows":"multiverso_tpu/ops/pallas_rows.py:172",
     "gather_rows": "multiverso_tpu/ops/pallas_rows.py:107",
     "scatter_add_rows_coalesced": "multiverso_tpu/ops/pallas_rows.py:296",
 }
@@ -856,6 +1294,9 @@ def main(argv=None) -> int:
 
     # 3. kernels
     results = kernel_phase(rows, mesh, dev)
+    floors = floor_times(rows, mesh, dev)
+    print(f"kernel floors, ms per call at the 64-slot bucket (64 random ids "
+          f"into 1M x 52 fp32; {card}): {json.dumps(floors)}", flush=True)
 
     # 4. the coalesced scatter; its main path is the word2vec push
     err, times = coalesced_phase(rows, mesh, dev, card)
@@ -891,7 +1332,40 @@ def main(argv=None) -> int:
           f"{json.dumps(w2v_launches)}", flush=True)
     launches["scatter_add_rows_coalesced"] = w2v_launches["scatter_add_rows_coalesced"]
 
-    # 7. the kernel line, then the verdict
+    # 7. the consistency servers
+    finals = {}
+    for mode, jitter in (("bsp", 0.0), ("ssp2", 0.0), ("deterministic", 0.0),
+                         ("deterministic", 0.002)):
+        m, finals[(mode, jitter)], mode_launches = modes_phase(
+            mvt, rows, "cuda", mode, jitter_s=jitter)
+        print(f"{mode} PS (jitter {jitter} s) on {card}: {json.dumps(m)}; "
+              f"launches over the drive: {json.dumps(mode_launches)}", flush=True)
+        for k, n in mode_launches.items():
+            if n <= 0:
+                raise AssertionError(f"{k}: no launch under {mode}")
+    a, b = finals[("deterministic", 0.0)], finals[("deterministic", 0.002)]
+    if not np.array_equal(a, b):
+        raise AssertionError(f"-deterministic: two runs differ (max |diff| "
+                             f"{float(np.abs(a - b).max())})")
+    print("deterministic PS: the two runs' final tables are bitwise equal",
+          flush=True)
+    del finals, a, b
+
+    # 8. word2vec's staged path under the gated and deterministic servers
+    staged, staged_launches = staged_word2vec_phase(mvt, rows, "cuda", card)
+    print(f"staged word2vec on {card}: {json.dumps(staged)}", flush=True)
+    print(f"launches over the staged word2vec runs: {json.dumps(staged_launches)}",
+          flush=True)
+    for k, n in staged_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k}: no launch on the staged word2vec path")
+
+    # 9. logistic regression
+    lr_metrics, lr_launches = logreg_phase(mvt, rows, "cuda", card)
+    print(f"logreg on {card}: {json.dumps(lr_metrics)}; launches over the "
+          f"phase: {json.dumps(lr_launches)}", flush=True)
+
+    # 10. the kernel line, then the verdict
     table = []
     for k, where in KERNELS.items():
         r = results[k]

@@ -191,11 +191,20 @@ define_string("device", "cuda",
               "when a CUDA device is asked for and none is present")
 define_string("ps_role", "default", "node role: worker|server|default(all)|none")
 define_bool("ma", False, "model-averaging mode: skip PS tables, aggregate() only")
-define_bool("sync", False, "synchronous (BSP) parameter server (not yet ported)")
+define_bool("sync", False, "synchronous (BSP) parameter server")
 define_int("ssp_staleness", -1,
-           "stale-synchronous-parallel bound (not yet ported; -1 disables)")
+           "stale-synchronous-parallel bound: a worker's Get waits until "
+           "every unfinished worker is within this many add-rounds of it "
+           "(0 = BSP-like read gate; -1 disables). Ignored when sync=True")
+define_double("backup_worker_ratio", 0.0,
+              "fraction of workers treated as backups: the BSP round gates "
+              "ignore the slowest floor(ratio*num_workers) workers' clocks")
+define_double("sync_stall_seconds", 30.0,
+              "BSP watchdog period: log which workers' clocks are holding a "
+              "round when deferred requests make no progress; 0 disables")
 define_bool("deterministic", False,
-            "reproducible-apply-order async server (not yet ported)")
+            "async PS applies adds in (round, worker_id) order so the final "
+            "table state is bitwise reproducible (DeterministicServer)")
 define_string("updater_type", "default", "server-side optimizer: default|sgd|adagrad|momentum_sgd|dcasgd")
 define_bool("is_pipelined", False, "double-buffered pipelined get")
 define_int("local_workers", 1, "logical worker contexts hosted by this process")

@@ -8,12 +8,17 @@ the slicing its checkpoint ``store`` writes (``MatrixServer.store``:
 this package, into its own padded layout, so the next Add computes the
 same result in both packages. :func:`word2vec_params` does the same for
 the word2vec parameters of ``init_params`` / ``DeviceTrainer.params``.
-Nothing here imports the JAX package: the caller hands over plain arrays.
+The logistic-regression state crosses the same way:
+:func:`load_logreg_weights` (a ``LogReg``'s weights, or a ``PSLogReg``'s
+array table), :func:`load_ftrl_state` (an FTRL table's ``z``/``n``, dense
+or sparse) and :func:`load_sparse_state` (a sparse table's live keys and
+values). Nothing here imports the JAX package: the caller hands over plain
+arrays.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -21,7 +26,10 @@ import torch
 from multiverso_tpu_torch.parallel import mesh as mesh_lib
 from multiverso_tpu_torch.runtime.zoo import Zoo
 from multiverso_tpu_torch.tables.array_table import ArrayServer
+from multiverso_tpu_torch.tables.ftrl_table import FTRLServer
 from multiverso_tpu_torch.tables.matrix_table import MatrixServer
+from multiverso_tpu_torch.tables.sparse_table import (SparseFTRLServer,
+                                                      SparseServer)
 
 
 def load_state(table, data: np.ndarray,
@@ -83,3 +91,83 @@ def word2vec_params(w_in: np.ndarray, w_out: np.ndarray,
     if out["w_in"].shape[1] != out["w_out"].shape[1]:
         raise ValueError("word2vec_params: w_in and w_out widths differ")
     return out
+
+
+def load_sparse_state(table, keys: np.ndarray, values: np.ndarray) -> None:
+    """Replace a sparse table's entries with ``keys`` (the JAX table's live
+    keys) and their ``(len(keys), width)`` ``values``, as its get-all
+    returns them."""
+    server = getattr(table, "_server_table", table)
+    if type(server) is not SparseServer:
+        raise TypeError(f"load_sparse_state: unsupported table "
+                        f"{type(server).__name__}")
+    keys = np.asarray(keys, np.int64).reshape(-1)
+    values = np.asarray(values, server.dtype).reshape(-1, server.width)
+    if len(keys) != len(values):
+        raise ValueError(f"load_sparse_state: {len(keys)} keys but "
+                         f"{len(values)} value rows")
+    server._check_keys(keys)
+    store = {int(k): v.copy() for k, v in zip(keys, values)}
+
+    def install() -> None:
+        server._store = store
+
+    Zoo.instance().server.run_serialized(install)
+
+
+def load_ftrl_state(table, z: np.ndarray, n: np.ndarray,
+                    keys: Optional[np.ndarray] = None) -> None:
+    """Install FTRL accumulators: a dense FTRL table takes ``z`` and ``n``
+    of its logical size; a sparse FTRL table takes the live ``keys`` with
+    ``(len(keys), width)`` rows of ``z`` and ``n``."""
+    server = getattr(table, "_server_table", table)
+    z = np.asarray(z, np.float32)
+    n = np.asarray(n, np.float32)
+    if isinstance(server, FTRLServer):
+        if keys is not None or z.shape != (server.size,) or n.shape != z.shape:
+            raise ValueError(f"load_ftrl_state: dense table of size "
+                             f"{server.size} takes z and n of that shape, "
+                             f"no keys")
+
+        def install() -> None:
+            server.z[: server.size] = torch.from_numpy(z.copy()).to(server.device)
+            server.n[: server.size] = torch.from_numpy(n.copy()).to(server.device)
+    elif isinstance(server, SparseFTRLServer):
+        if keys is None:
+            raise ValueError("load_ftrl_state: a sparse FTRL table needs keys")
+        keys = np.asarray(keys, np.int64).reshape(-1)
+        shape = (len(keys), server.width)
+        if z.reshape(-1).size != np.prod(shape) or n.shape != z.shape:
+            raise ValueError(f"load_ftrl_state: z and n must hold {shape} rows")
+        z, n = z.reshape(shape), n.reshape(shape)
+        zs = {int(k): r.copy() for k, r in zip(keys, z)}
+        ns = {int(k): r.copy() for k, r in zip(keys, n)}
+
+        def install() -> None:
+            server._z, server._n = zs, ns
+    else:
+        raise TypeError(f"load_ftrl_state: unsupported table "
+                        f"{type(server).__name__}")
+    Zoo.instance().server.run_serialized(install)
+
+
+def load_logreg_weights(model, w: np.ndarray) -> None:
+    """A ``LogReg``'s weights ``(output_size, input_size + 1)``; for a
+    ``PSLogReg`` on the array table, the table's data, then the replica is
+    pulled again. Sparse and FTRL PS models hold table state instead: load
+    it with :func:`load_sparse_state` / :func:`load_ftrl_state` into
+    ``model.table``, then call ``model.finish()`` to pull it."""
+    from multiverso_tpu_torch.models.logreg import PSLogReg
+    cfg = model.config
+    w = np.asarray(w, np.float32)
+    if w.shape != (cfg.output_size, cfg.input_size + 1):
+        raise ValueError(f"load_logreg_weights: shape {w.shape} != "
+                         f"{(cfg.output_size, cfg.input_size + 1)}")
+    if not isinstance(model, PSLogReg):
+        model.load_weights(w)
+        return
+    if not isinstance(model.table._server_table, ArrayServer):
+        raise TypeError("load_logreg_weights: a sparse or FTRL PSLogReg holds "
+                        "table state; use load_sparse_state / load_ftrl_state")
+    load_state(model.table, w.reshape(-1), {})
+    model.finish()

@@ -32,6 +32,7 @@ Not yet ported: the host (remote-proxy) branch of
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
@@ -844,6 +845,7 @@ class PSTrainer:
             self._txn_name: Optional[str] = None
             # cap on the per-block negative pool
             self.neg_pool = 16384
+            self._slot_lut_lock = threading.Lock()
             if self._can_transact():
                 self._build_txn_fn()
 
@@ -1077,24 +1079,27 @@ class PSTrainer:
         draws = self._neg_draw(self.rng, (p_draws,)).reshape(-1)
         # persistent vocab->compact-slot lookup table, reset only at the
         # touched entries (in ``finally``: a dirty table would map the
-        # next block's draws onto THIS block's slots)
-        lut = getattr(self, "_slot_lut", None)
-        if lut is None:
-            lut = self._slot_lut = np.full(self.config.vocab_size, -1,
-                                           np.int32)
-        pool_only = None
-        try:
-            lut[blk_u] = np.arange(n_blk, dtype=np.int32)
-            pool_only = np.unique(draws[lut[draws] < 0]).astype(np.int32)
-            lut[pool_only] = n_blk + np.arange(len(pool_only),
-                                               dtype=np.int32)
-            ids_out = np.concatenate([blk_u, pool_only])
-            slot_alias = lut[draws]
-            flat = lut[block]
-        finally:
-            lut[blk_u] = -1
-            if pool_only is not None:
-                lut[pool_only] = -1
+        # next block's draws onto THIS block's slots). Worker threads that
+        # share this trainer take turns with it: two blocks filling it at
+        # once would map each other's tokens onto wrong slots.
+        with self._slot_lut_lock:
+            lut = getattr(self, "_slot_lut", None)
+            if lut is None:
+                lut = self._slot_lut = np.full(self.config.vocab_size, -1,
+                                               np.int32)
+            pool_only = None
+            try:
+                lut[blk_u] = np.arange(n_blk, dtype=np.int32)
+                pool_only = np.unique(draws[lut[draws] < 0]).astype(np.int32)
+                lut[pool_only] = n_blk + np.arange(len(pool_only),
+                                                   dtype=np.int32)
+                ids_out = np.concatenate([blk_u, pool_only])
+                slot_alias = lut[draws]
+                flat = lut[block]
+            finally:
+                lut[blk_u] = -1
+                if pool_only is not None:
+                    lut[pool_only] = -1
 
         use_txn = self._can_transact()
         if not use_txn:
@@ -1177,7 +1182,11 @@ class PSTrainer:
         else:
             self.input_table.wait(pend["a1"])
             self.output_table.wait(pend["a2"])
-        self.count_table.add([0], [pend["block_len"]])
+        # the word count is a shared tally, not a training round: it goes
+        # in as administrative access, outside the BSP/SSP clocks (a table
+        # that only ever takes Adds would stall BSP at its second round)
+        with Zoo.instance().admin():
+            self.count_table.add([0], [pend["block_len"]])
         self.words_trained += pend["block_len"]
         self.last_block_stats = {"in_rows": pend["n_in"],
                                  "out_rows": pend["n_out"],

@@ -7,20 +7,31 @@ update of the table's device tensors, "answer a Get" a row gather plus a
 host copy. Each drain micro-batches queued Adds per table into one fused
 apply (the Downpour-tolerated reordering, see :meth:`Server._dispatch_batch`).
 
-Not yet ported, each for its own slice: the BSP / SSP / deterministic
-servers (:func:`make_server` refuses their flags), admission control,
-priority lanes, deadlines, the write-ahead log, trace hops and profiler
-wait sites. With their defaults those admit every message in arrival
-order, so leaving them out changes no result.
+The consistency servers keep the JAX package's contracts exactly:
+:class:`DeterministicServer` applies Adds in (round, worker) order and
+acknowledges them at enqueue; :class:`SyncServer` is BSP with two-sided
+per-worker vector clocks (*every worker's i-th Get observes exactly i
+rounds of every worker's Adds*), backup workers and a stall watchdog;
+:class:`SSPServer` bounds how many add-rounds a worker may lead the
+slowest. None of them fuses Adds.
+
+Not yet ported, each for its own slice: admission control, priority lanes,
+deadlines, the write-ahead log (the JAX servers append to it where they
+apply or accept an Add), trace hops and the flight recorder, profiler wait
+sites, and the sync watchdog's lease reaping and worker eviction (they need
+remote liveness). With their defaults the first five admit every message in
+arrival order and record nothing, so leaving them out changes no result.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Dict, List, Optional
 
 from multiverso_tpu_torch import config, log
-from multiverso_tpu_torch.dashboard import Dashboard, log_bounds, monitor
+from multiverso_tpu_torch.dashboard import (Dashboard, gauge_set, log_bounds,
+                                            monitor, observe)
 from multiverso_tpu_torch.runtime.message import Message, MsgType
 from multiverso_tpu_torch.utils import MtQueue
 
@@ -70,9 +81,12 @@ class Server:
     dispatcher thread, overlapping the caller's compute.
     """
 
-    # Capability flags read by clients (same meaning as in the JAX package):
-    # this server neither gates Gets behind round clocks nor defers Adds,
-    # and it fuses queued Adds.
+    # Capability flags (same meaning as in the JAX package). gates_gets:
+    # Gets wait behind round clocks (BSP/SSP), so a fused add+get reply
+    # cannot honour the round contract. defers_adds: Adds complete at
+    # enqueue and apply later (deterministic order). fuses_adds: the drain
+    # loop may micro-batch queued Adds into one fused table apply; the
+    # gated and deterministic servers keep it False and apply per message.
     gates_gets = False
     defers_adds = False
     fuses_adds = True
@@ -284,7 +298,7 @@ class Server:
             fn, completion = msg.data
             completion.done(fn())
         elif msg.type == MsgType.Server_Finish_Train:
-            pass  # the async server has no clocks to drain
+            self._process_finish_train(msg)
         else:
             log.error("server: unhandled message type %s", msg.type)
 
@@ -300,14 +314,346 @@ class Server:
             request, completion = msg.data
             completion.done(self._tables[msg.table_id].process_get(request))
 
+    def _process_finish_train(self, msg: Message) -> None:
+        pass  # the async server has no clocks to drain
+
+
+class DeterministicServer(Server):
+    """Async server with a deterministic apply order (the ``deterministic``
+    flag). Adds are buffered per (table, worker) and applied in
+    (round, worker_id) order: round-r deltas apply only once every
+    unfinished worker's round-r delta has arrived, then in ascending worker
+    id. The final table state is therefore bitwise reproducible run to run
+    regardless of thread scheduling (float addition is not associative;
+    plain async applies in arrival order). Gets are served immediately.
+
+    Contract: workers issue the same number of Adds per table between
+    ``finish_train`` calls; ``finish_train`` releases a finished worker's
+    hold on later rounds. Add completions fire at ENQUEUE, not at apply:
+    completing at apply would deadlock two workers adding to two tables in
+    opposite orders, each waiting for the round-mate Add the other is about
+    to send. Apply-time errors therefore surface in the log, not in the
+    caller (as with ``add_async``).
+    """
+
+    defers_adds = True
+    fuses_adds = False
+
+    def __init__(self, num_workers: int) -> None:
+        super().__init__(num_workers)
+        self._add_queues: Dict[int, List[List[Message]]] = {}
+        self._det_finished: List[bool] = [False] * num_workers
+
+    def register_table(self, server_table) -> int:
+        table_id = super().register_table(server_table)
+        self._add_queues[table_id] = [[] for _ in range(self.num_workers)]
+        return table_id
+
+    def _process_add(self, msg: Message) -> None:
+        if not 0 <= msg.src < self.num_workers:
+            super()._process_add(msg)  # administrative: apply immediately
+            return
+        self._add_queues[msg.table_id][msg.src].append(msg)
+        msg.data[-1].done(None)  # accepted; applies in round order below
+        self._drain_adds(msg.table_id)
+
+    def _drain_adds(self, table_id: int) -> None:
+        queues = self._add_queues[table_id]
+        while any(queues) and all(
+                q or self._det_finished[w] for w, q in enumerate(queues)):
+            for w, q in enumerate(queues):
+                if q:
+                    request, _ = q.pop(0).data
+                    try:
+                        with monitor("SERVER_PROCESS_ADD_MSG"):
+                            self._tables[table_id].process_add(request)
+                    except Exception as exc:  # keep the round draining
+                        log.error("deterministic add from worker %d on table"
+                                  " %d failed at apply time: %r", w,
+                                  table_id, exc)
+
+    def _process_finish_train(self, msg: Message) -> None:
+        if 0 <= msg.src < self.num_workers:
+            self._det_finished[msg.src] = True
+        for tid in list(self._tables):
+            self._drain_adds(tid)
+
+
+class SyncServer(Server):
+    """BSP dispatcher: per-worker vector clocks and deferred request caches.
+    A worker's round-(i+1) Add waits until every worker has finished its
+    round-i Get; its round-i Get waits until every worker's round-i Add is
+    applied. So each worker's rounds open with an Add."""
+
+    gates_gets = True
+    # the two-sided clock defers and releases every Add itself: per-message
+    # dispatch is the gate (SSPServer inherits: its Adds bump per-worker
+    # clocks that a fused apply could not account)
+    fuses_adds = False
+
+    def __init__(self, num_workers: int) -> None:
+        super().__init__(num_workers)
+        # per-table clocks: adds applied / gets served, per worker
+        self._add_clock: Dict[int, List[int]] = {}
+        self._get_clock: Dict[int, List[int]] = {}
+        self._finished: List[bool] = [False] * num_workers
+        self._pending_add: Dict[int, List[Message]] = {}
+        self._pending_get: Dict[int, List[Message]] = {}
+        # straggler tolerance: the slowest floor(ratio * num_workers)
+        # workers' clocks are ignored by the round gates
+        self._backup_count = int(
+            config.get_flag("backup_worker_ratio") * num_workers)
+        # stall watchdog: every `sync_stall_seconds` with no clock progress
+        # while requests sit deferred, log WHICH workers hold the round
+        self.last_stall: Optional[str] = None
+        self._watch_stop = threading.Event()
+        self._watch_thread: Optional[threading.Thread] = None
+        # guards dict INSERTS (register_table, user thread) against the
+        # watchdog's iteration; in-place clock list updates never resize
+        self._register_lock = threading.Lock()
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> None:
+        super().start()
+        period = float(config.get_flag("sync_stall_seconds"))
+        if period > 0:
+            self._watch_thread = threading.Thread(
+                target=self._watch_stalls, args=(period,),
+                name="mv-sync-watchdog", daemon=True)
+            self._watch_thread.start()
+
+    def stop(self) -> None:
+        self._watch_stop.set()
+        if self._watch_thread is not None:
+            self._watch_thread.join(timeout=10)
+            self._watch_thread = None
+        super().stop()
+
+    def _watch_stalls(self, period: float) -> None:
+        last_snap = None
+        while not self._watch_stop.wait(period):
+            with self._register_lock:
+                tids = list(self._add_clock)
+                snap_add = {t: list(self._add_clock[t]) for t in tids}
+                snap_get = {t: list(self._get_clock[t]) for t in tids}
+            pending = {tid: (len(self._pending_add[tid]),
+                             len(self._pending_get[tid]))
+                       for tid in tids}
+            snap = (snap_add, snap_get, pending)
+            if last_snap == snap and any(a or g for a, g in pending.values()):
+                for tid, (n_add, n_get) in pending.items():
+                    if n_add or n_get:
+                        self._report_stall(tid, n_add, n_get, period)
+            last_snap = snap
+
+    def _report_stall(self, tid: int, n_add: int, n_get: int,
+                      period: float) -> None:
+        adds, gets = self._add_clock[tid], self._get_clock[tid]
+        # blockers: unfinished workers at the minimum clock with NO
+        # deferred request of their own (a worker whose request sits in the
+        # pending queue is waiting, not holding the round)
+        waiting = ({m.src for m in self._pending_add[tid]}
+                   | {m.src for m in self._pending_get[tid]})
+        unfin = [w for w in range(self.num_workers) if not self._finished[w]]
+        if not unfin:
+            return
+        min_add = min(adds[w] for w in unfin)
+        min_get = min(gets[w] for w in unfin)
+        at_min = [w for w in unfin if adds[w] == min_add or gets[w] == min_get]
+        lag = sorted(w for w in at_min if w not in waiting) or sorted(at_min)
+        report = (f"sync stall: table {tid} has {n_add} deferred adds / "
+                  f"{n_get} deferred gets with no progress for {period:.1f}s; "
+                  f"waiting on worker(s) {lag} (add clocks {adds}, get clocks "
+                  f"{gets})")
+        self.last_stall = report
+        log.error("%s", report)
+
+    # gate-wait telemetry: a deferred request's queue time is the tail the
+    # BSP/SSP contract creates, stamped at defer and observed at release
+    @staticmethod
+    def _gate_defer(msg: Message) -> None:
+        msg._gated_at = time.perf_counter()
+
+    @staticmethod
+    def _gate_release(msg: Message) -> None:
+        gated_at = getattr(msg, "_gated_at", None)
+        if gated_at is not None:
+            observe("SYNC_GATE_WAIT_SECONDS", time.perf_counter() - gated_at)
+
+    def register_table(self, server_table) -> int:
+        table_id = super().register_table(server_table)
+        with self._register_lock:
+            self._add_clock[table_id] = [0] * self.num_workers
+            self._get_clock[table_id] = [0] * self.num_workers
+            self._pending_add[table_id] = []
+            self._pending_get[table_id] = []
+        return table_id
+
+    # clock helpers: finished workers never hold anyone back, and the
+    # slowest `_backup_count` unfinished workers are ignored
+    def _gate(self, vals: List[int]) -> int:
+        if not vals:
+            return 1 << 60
+        k = min(self._backup_count, len(vals) - 1)
+        return sorted(vals)[k]
+
+    def _min_gets(self, table_id: int) -> int:
+        return self._gate([g for g, f in zip(self._get_clock[table_id],
+                                             self._finished) if not f])
+
+    def _min_adds(self, table_id: int) -> int:
+        return self._gate([a for a, f in zip(self._add_clock[table_id],
+                                             self._finished) if not f])
+
+    def _is_admin(self, worker: int) -> bool:
+        """Administrative access (no worker context, worker id -1)
+        bypasses the clocks."""
+        return not 0 <= worker < self.num_workers
+
+    def _apply_add(self, msg: Message) -> None:
+        """Apply a released Add; its completion carries ``process_add``'s
+        return value (a fused add+get reply where the table gives one)."""
+        request, completion = msg.data
+        with monitor("SERVER_PROCESS_ADD_MSG"):
+            completion.done(self._tables[msg.table_id].process_add(request))
+
+    def _serve_get(self, msg: Message) -> None:
+        request, completion = msg.data
+        with monitor("SERVER_PROCESS_GET_MSG"):
+            completion.done(self._tables[msg.table_id].process_get(request))
+
+    def _process_add(self, msg: Message) -> None:
+        tid, worker = msg.table_id, msg.src
+        if self._is_admin(worker):
+            super()._process_add(msg)
+            return
+        round_ = self._add_clock[tid][worker] + 1
+        # round-r Adds wait until every worker has finished its round-(r-1) Gets
+        if self._min_gets(tid) >= round_ - 1:
+            self._apply_add(msg)
+            self._add_clock[tid][worker] = round_
+            self._drain(tid)
+        else:
+            self._gate_defer(msg)
+            self._pending_add[tid].append(msg)
+
+    def _process_get(self, msg: Message) -> None:
+        tid, worker = msg.table_id, msg.src
+        if self._is_admin(worker):
+            super()._process_get(msg)
+            return
+        round_ = self._get_clock[tid][worker] + 1
+        # round-i Gets wait until every worker's round-i Add is applied
+        if self._min_adds(tid) >= round_:
+            self._serve_get(msg)
+            self._get_clock[tid][worker] = round_
+            self._drain(tid)
+        else:
+            self._gate_defer(msg)
+            self._pending_get[tid].append(msg)
+
+    def _process_finish_train(self, msg: Message) -> None:
+        if self._is_admin(msg.src):
+            return
+        self._finished[msg.src] = True
+        for tid in list(self._tables):
+            self._drain(tid)
+
+    def _drain(self, table_id: int) -> None:
+        """Release deferred messages whose clock condition now holds."""
+        progressed = True
+        while progressed:
+            progressed = False
+            # gets first (they unblock next-round adds)
+            still: List[Message] = []
+            for msg in self._pending_get[table_id]:
+                round_ = self._get_clock[table_id][msg.src] + 1
+                if self._min_adds(table_id) >= round_:
+                    self._gate_release(msg)
+                    self._serve_get(msg)
+                    self._get_clock[table_id][msg.src] = round_
+                    progressed = True
+                else:
+                    still.append(msg)
+            self._pending_get[table_id] = still
+            still = []
+            for msg in self._pending_add[table_id]:
+                round_ = self._add_clock[table_id][msg.src] + 1
+                if self._min_gets(table_id) >= round_ - 1:
+                    self._gate_release(msg)
+                    self._apply_add(msg)
+                    self._add_clock[table_id][msg.src] = round_
+                    progressed = True
+                else:
+                    still.append(msg)
+            self._pending_add[table_id] = still
+
+
+class SSPServer(SyncServer):
+    """Stale-synchronous-parallel dispatcher: a worker that has completed
+    ``r`` Adds on a table may Get it only once EVERY unfinished worker has
+    completed at least ``r - staleness`` Adds, so the fastest worker runs
+    at most ``staleness`` rounds ahead of the slowest. ``staleness=0`` is a
+    BSP-like read gate. Adds are never deferred: applying a straggler's
+    delta cannot break anyone's bound, it only advances the gate.
+    ``backup_worker_ratio`` composes as in BSP."""
+
+    def __init__(self, num_workers: int, staleness: int) -> None:
+        super().__init__(num_workers)
+        self.staleness = int(staleness)
+
+    def _process_add(self, msg: Message) -> None:
+        tid, worker = msg.table_id, msg.src
+        if self._is_admin(worker):
+            Server._process_add(self, msg)
+            return
+        self._apply_add(msg)
+        self._add_clock[tid][worker] += 1
+        # observed staleness: how many add-rounds this worker now leads the
+        # slowest unfinished worker by (0 = in lockstep)
+        gauge_set(f"SSP_STALENESS_W{worker}",
+                  self._add_clock[tid][worker] - self._min_adds(tid))
+        self._drain(tid)
+
+    def _gate_round(self, tid: int, worker: int) -> int:
+        """The add-round this worker's next Get requires every unfinished
+        (non-backup) worker to have reached."""
+        return self._add_clock[tid][worker] - self.staleness
+
+    def _process_get(self, msg: Message) -> None:
+        tid, worker = msg.table_id, msg.src
+        if self._is_admin(worker):
+            Server._process_get(self, msg)
+            return
+        if self._min_adds(tid) >= self._gate_round(tid, worker):
+            self._serve_get(msg)
+            self._get_clock[tid][worker] += 1
+        else:
+            self._gate_defer(msg)
+            self._pending_get[tid].append(msg)
+
+    def _drain(self, table_id: int) -> None:
+        still: List[Message] = []
+        for msg in self._pending_get[table_id]:
+            if self._min_adds(table_id) >= self._gate_round(table_id, msg.src):
+                self._gate_release(msg)
+                self._serve_get(msg)
+                self._get_clock[table_id][msg.src] += 1
+            else:
+                still.append(msg)
+        self._pending_get[table_id] = still
+
 
 def make_server(num_workers: int) -> Server:
     """Factory keyed on the consistency flags (reference:
-    ``Server::GetServer``). Only the async server is ported so far."""
-    for flag, on in (("sync", bool(config.get_flag("sync"))),
-                     ("ssp_staleness", int(config.get_flag("ssp_staleness")) >= 0),
-                     ("deterministic", bool(config.get_flag("deterministic")))):
-        if on:
-            log.fatal("the %s server is not yet ported to multiverso_tpu_torch "
-                      "(only the async server is); unset -%s", flag, flag)
+    ``Server::GetServer``): ``sync`` → BSP, ``ssp_staleness >= 0`` →
+    bounded staleness, ``deterministic`` → reproducible-apply-order async
+    (sync mode is already deterministic through its clocks)."""
+    if config.get_flag("sync"):
+        return SyncServer(num_workers)
+    ssp = int(config.get_flag("ssp_staleness"))
+    if ssp >= 0:
+        return SSPServer(num_workers, ssp)
+    if config.get_flag("deterministic"):
+        return DeterministicServer(num_workers)
     return Server(num_workers)

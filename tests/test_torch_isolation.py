@@ -24,7 +24,7 @@ def _forbidden(module: str) -> bool:
 
 
 def test_import_pulls_in_no_jax():
-    # every module of the package, the word2vec app and its tables included
+    # every module of the package, both apps and their tables included
     code = ("import importlib, json, pkgutil, sys, multiverso_tpu_torch as p; "
             "[importlib.import_module(m.name) for m in "
             "pkgutil.walk_packages(p.__path__, 'multiverso_tpu_torch.')]; "
@@ -34,7 +34,9 @@ def test_import_pulls_in_no_jax():
                          capture_output=True, text=True, check=True, timeout=120)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"multiverso_tpu_torch.models.word2vec", "multiverso_tpu_torch.convert",
-            "multiverso_tpu_torch.tables.kv_table"} <= set(loaded)
+            "multiverso_tpu_torch.tables.kv_table", "multiverso_tpu_torch.models.logreg",
+            "multiverso_tpu_torch.tables.sparse_table",
+            "multiverso_tpu_torch.tables.ftrl_table"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
