@@ -8,12 +8,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. The card (``nvidia-smi`` name and power limit), ``torch.version.cuda``
    and ``nvcc --version``.
 2. Build the CUDA kernels from ``multiverso_tpu_torch/csrc`` (first use).
-3. Kernels: each kernel against its plain PyTorch version on the card, on
-   the main path's table (1M x 50 fp32, rows padded to 52) at every id
-   bucket 64..16384 with sentinel pads — the scatter on float32, float64
-   and int32, the gather with repeated ids; both must match exactly. Then
-   CUDA-event times at the main path's shape (1024 ids) for the kernel,
-   its plain version and the PyTorch library call, beside the bytes bound.
+3. Kernels: the scatter and the gather against their plain PyTorch
+   versions on the card, bit for bit: on the main path's table (1M x 50,
+   rows padded to whole 16-byte vectors) at every id bucket 64..65536 with
+   sentinel pads, in float32, float64, float16, int32 and int64 (the
+   gather with repeated ids); at rows of 1, 3, 13, 32 and 15,552 vectors
+   (the last wider than a block's shared memory); with out-of-range ids
+   (the gather writes zeros, the scatter skips them); and both scatters on
+   special values (signed zeros, subnormals, infinities) in each float
+   dtype and in both of the simple scatter's paths. Then the card's launch
+   floor (``fill_`` on a one-element tensor, back to back) and CUDA-event
+   times at the main path's shape (1024 ids, 1024 id sets in rotation so
+   the rows come from HBM) for the kernel, its plain version and the
+   PyTorch library call, beside the bytes bound.
 4. The coalesced scatter against its plain version and against the simple
    scatter, exactly: buckets 64..16384 (and 65536 for float32), float32,
    float64 and int32, three id patterns (sorted zipf-unique as word2vec
@@ -24,7 +31,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and the gather are first held exactly against ``index_add_`` and
    ``index_select``, and at the PS shape; the gather and ``index_select``
    at the staged word2vec pull shape (the same 65,536-slot buckets). Each
-   kernel's floor: its CUDA-event time at the 64-slot bucket.
+   kernel's time at the 64-slot bucket.
 5. Parameter server: ``mvt.init(local_workers=4)`` on the card; four
    worker threads send 1024-row Adds (random ids, duplicates included) and
    1024-row Gets to a 1M x 50 default-updater matrix table (the kernel
@@ -64,7 +71,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    table (10-class softmax) and the dense FTRL table; each card run
    against the CPU on one minibatch, then timed. Phases 7-9 print the
    scatter and gather launch counts over the phase; 7 and 8 need both.
-10. One JSON line listing every kernel, then the last line
+10. The run's seconds, one JSON line listing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
@@ -90,6 +97,13 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 ROWS, COLS, BATCH = 1_000_000, 50, 1024   # the reference's matrix perf harness
 WORKERS = 4
 BUCKETS = [64 << k for k in range(9)]      # 64 .. 16384
+KERNEL_BUCKETS = [64 << k for k in range(11)]  # 64 .. 65536
+KERNEL_DTYPES = (np.float32, np.float64, np.float16, np.int32, np.int64)
+# 16-byte vectors a row: one, an odd width, the PS row (52 fp32), the
+# word2vec row (128 fp32), and a row (243 KB) wider than the 227 KB of
+# shared memory a block can have
+ROW_WIDTHS = [1, 3, 13, 32, 15_552]
+PS_ID_SETS = 1024                          # id sets in rotation at the PS shape
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12                     # H100 SXM non-tensor fp32, data sheet
 # word2vec: the bench recipe (bench.py bench_ps_word2vec / bench_word2vec)
@@ -145,70 +159,177 @@ def device_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def random_rows(rng, shape, np_dtype) -> np.ndarray:
+    """Table or delta rows: integers in [-1000, 1000) or normal floats."""
+    if np.issubdtype(np_dtype, np.integer):
+        return rng.integers(-1000, 1000, size=shape, dtype=np_dtype)
+    return rng.standard_normal(shape).astype(np_dtype)
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits, for comparisons that tell -0.0 from 0.0."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def check_rows(rows, table, np_dtype, rng, B: int, sentinel: int, label: str):
+    """The scatter (unique live ids, sentinel pads with zero deltas) and the
+    gather (repeated ids, sentinel pads) against their plain versions on
+    ``table``, bit for bit. Returns (max |err| scatter, gather)."""
+    live = B - B // 8
+    ids = np.full(B, sentinel, np.int32)
+    ids[:live] = rng.choice(sentinel, live, replace=False)
+    d = random_rows(rng, (B, table.shape[1]), np_dtype)
+    d[live:] = 0
+    ids_t, d_t = torch.from_numpy(ids).to(table.device), torch.from_numpy(d).to(table.device)
+    got = rows.scatter_add_rows(table.clone(), ids_t, d_t)
+    want = rows.scatter_add_rows_plain(table.clone(), ids_t, d_t)
+    torch.cuda.synchronize()
+    e_s = (got.double() - want.double()).abs().max().item()
+    if not torch.equal(bits(got), bits(want)):
+        raise AssertionError(f"scatter_add_rows {label} B={B}: max |kernel - plain| = {e_s}")
+    del got, want
+    gids = np.full(B, sentinel, np.int32)
+    gids[:live] = rng.integers(0, sentinel, live)
+    gids_t = torch.from_numpy(gids).to(table.device)
+    g = rows.gather_rows(table, gids_t)
+    gw = rows.gather_rows_plain(table, gids_t)
+    torch.cuda.synchronize()
+    e_g = (g.double() - gw.double()).abs().max().item()
+    if not torch.equal(bits(g), bits(gw)):
+        raise AssertionError(f"gather_rows {label} B={B}: max |kernel - plain| = {e_g}")
+    return e_s, e_g
+
+
+def check_out_of_range(rows, table, rng) -> None:
+    """Ids outside [0, rows) reach the kernels (the table layer rejects them
+    first; a wrapper does not): the gather writes zeros for them, the
+    scatter skips them and leaves every other row as index_add_ does."""
+    R, C = table.shape
+    B = 1024
+    ids = np.full(B, R - 1, np.int32)
+    ids[:900] = rng.choice(R - 1, 900, replace=False)
+    bad = [3, 500, 899]
+    ids[bad] = [-1, R, 2 ** 31 - 1]
+    d = rng.standard_normal((B, C)).astype(np.float32)
+    d[900:] = 0
+    fixed_ids, fixed_d = ids.copy(), d.copy()
+    fixed_ids[bad], fixed_d[bad] = R - 1, 0  # the same Add without the bad slots
+    dev = table.device
+    got = rows.scatter_add_rows(table.clone(), torch.from_numpy(ids).to(dev),
+                                torch.from_numpy(d).to(dev))
+    want = table.clone().index_add_(0, torch.from_numpy(fixed_ids).to(dev),
+                                    torch.from_numpy(fixed_d).to(dev))
+    g = rows.gather_rows(table, torch.from_numpy(ids).to(dev))
+    g_want = table.index_select(0, torch.from_numpy(fixed_ids).to(dev))
+    g_want[bad] = 0
+    torch.cuda.synchronize()
+    if not torch.equal(bits(got), bits(want)):
+        raise AssertionError("scatter_add_rows touched a row for an out-of-range id")
+    if not torch.equal(bits(g), bits(g_want)):
+        raise AssertionError("gather_rows: an out-of-range id did not give a zero row")
+
+
+# values where an add could round or flush differently: signed zeros,
+# subnormals, the smallest and largest normals, infinities
+SPECIAL = {
+    np.float32: [0.0, -0.0, 1e-45, -1e-45, 1e-40, -3e-39, 1.1754942e-38,
+                 -1.1754942e-38, 1.0, -1.0, 3.4e38, -3.4e38],
+    np.float64: [0.0, -0.0, 5e-324, -5e-324, 1e-310, -2e-308, 2.2250738585072014e-308,
+                 -2.2250738585072014e-308, 1.0, -1.0, 1.7e308, -1.7e308],
+    np.float16: [0.0, -0.0, 6e-8, -6e-8, 3e-5, -3e-5, 6.104e-05, -6.104e-05,
+                 1.0, -1.0, 65504.0, -65504.0],
+}
+
+
+def check_special_values(rows, mesh, dev, rng) -> int:
+    """Both scatters on special values (tables with infinities too), bit
+    for bit against index_add_ on the card, in each float dtype and in both
+    of the simple scatter's paths (a 64-slot batch adds in L2, a
+    65536-slot one through the SM). Returns the number of checks."""
+    checks = 0
+    for np_dtype, values in SPECIAL.items():
+        C = mesh.padded_cols(COLS, np_dtype)
+        vecs = C * np.dtype(np_dtype).itemsize // 16
+        if [rows.scatter_launch(B, vecs, 1)[1] for B in (64, 65536)] != [True, False]:
+            raise AssertionError(f"{np.dtype(np_dtype).name}: the special-value "
+                                 "batches do not take both scatter paths")
+        deltas_from = np.array(values, np_dtype)
+        table_from = np.concatenate([deltas_from, np.array([np.inf, -np.inf], np_dtype)])
+        table = torch.from_numpy(rng.choice(table_from, (70_001, C))).to(dev)
+        for B in (64, 65536):
+            ids = torch.from_numpy(rng.choice(70_000, B, replace=False).astype(np.int32)).to(dev)
+            d = torch.from_numpy(rng.choice(deltas_from, (B, C))).to(dev)
+            want = bits(table.clone().index_add_(0, ids, d))
+            for k in (rows.scatter_add_rows, rows.scatter_add_rows_coalesced):
+                got = k(table.clone(), ids, d)
+                torch.cuda.synchronize()
+                if not torch.equal(bits(got), want):
+                    raise AssertionError(
+                        f"{k.__name__} {np.dtype(np_dtype).name} B={B} on special values: "
+                        f"{int((bits(got) != want).sum())} elements differ from index_add_")
+                checks += 1
+        del table
+    return checks
+
+
 def kernel_phase(rows, mesh, dev):
-    """Compare each kernel with its plain version; time both and the
-    library call. Returns per-kernel results."""
+    """Compare the gather and the scatter with their plain versions; time
+    both and the library call at the PS shape. Returns (per-kernel
+    results, the launch floor in ms)."""
     rng = np.random.default_rng(0)
     R = ROWS + 1  # + the sentinel row, as MatrixServer lays the table out
     sentinel = ROWS
     err = {"scatter_add_rows": 0.0, "gather_rows": 0.0}
     checked = 0
-    for np_dtype in (np.float32, np.float64, np.int32):
+    for np_dtype in KERNEL_DTYPES:
         C = mesh.padded_cols(COLS, np_dtype)
-        if np.issubdtype(np_dtype, np.integer):
-            host = rng.integers(-1000, 1000, size=(R, C), dtype=np_dtype)
-        else:
-            host = rng.standard_normal((R, C)).astype(np_dtype)
-        table = torch.from_numpy(host).to(dev)
-        for B in BUCKETS:
-            live = B - B // 8
-            ids = np.full(B, sentinel, np.int32)
-            ids[:live] = rng.choice(ROWS, live, replace=False)
-            if np.issubdtype(np_dtype, np.integer):
-                d = rng.integers(-50, 50, size=(B, C), dtype=np_dtype)
-            else:
-                d = rng.standard_normal((B, C)).astype(np_dtype)
-            d[live:] = 0
-            ids_t, d_t = torch.from_numpy(ids).to(dev), torch.from_numpy(d).to(dev)
-            got = rows.scatter_add_rows(table.clone(), ids_t, d_t)
-            want = rows.scatter_add_rows_plain(table.clone(), ids_t, d_t)
-            torch.cuda.synchronize()
-            e = (got.double() - want.double()).abs().max().item()
-            err["scatter_add_rows"] = max(err["scatter_add_rows"], e)
-            if not torch.equal(got, want):
-                raise AssertionError(f"scatter_add_rows {np_dtype.__name__} B={B}: "
-                                     f"max |kernel - plain| = {e}")
-            del got, want
-            # gather: repeated ids and sentinel pads
-            gids = np.full(B, sentinel, np.int32)
-            gids[:live] = rng.integers(0, ROWS, live)
-            gids_t = torch.from_numpy(gids).to(dev)
-            g = rows.gather_rows(table, gids_t)
-            gw = rows.gather_rows_plain(table, gids_t)
-            torch.cuda.synchronize()
-            e = (g.double() - gw.double()).abs().max().item()
-            err["gather_rows"] = max(err["gather_rows"], e)
-            if not torch.equal(g, gw):
-                raise AssertionError(f"gather_rows {np_dtype.__name__} B={B}: "
-                                     f"max |kernel - plain| = {e}")
+        table = torch.from_numpy(random_rows(rng, (R, C), np_dtype)).to(dev)
+        for B in KERNEL_BUCKETS:
+            e = check_rows(rows, table, np_dtype, rng, B, sentinel,
+                           np.dtype(np_dtype).name)
+            err["scatter_add_rows"] = max(err["scatter_add_rows"], e[0])
+            err["gather_rows"] = max(err["gather_rows"], e[1])
             checked += 1
+        if np_dtype == np.float32:
+            check_out_of_range(rows, table, rng)
         del table
-    print(f"kernel phase: {checked} (dtype, bucket) cases, kernels equal to "
-          f"their plain versions (max |err| {err})", flush=True)
+    special = check_special_values(rows, mesh, dev, rng)
+    # row widths: a 16-byte vector, odd widths, the PS and word2vec rows,
+    # and a row wider than a block's shared memory, each with sentinel pads
+    widths = 0
+    for vecs in ROW_WIDTHS:
+        n_rows = 257 if vecs > 1024 else 4097
+        table = torch.from_numpy(random_rows(rng, (n_rows, vecs * 4), np.float32)).to(dev)
+        for B in ((64, 256) if vecs > 1024 else (64, 1024, 4096)):
+            check_rows(rows, table, np.float32, rng, B, n_rows - 1,
+                       f"{vecs} vectors a row")
+            widths += 1
+        del table
+    print(f"kernel phase: {checked} (dtype, bucket) cases on the 1M x 50 table "
+          f"(dtypes {[np.dtype(t).name for t in KERNEL_DTYPES]}, buckets "
+          f"{KERNEL_BUCKETS[0]}..{KERNEL_BUCKETS[-1]}) and {widths} (row width, "
+          f"bucket) cases (widths {ROW_WIDTHS} vectors), kernels bitwise equal "
+          f"to their plain versions (max |err| {err}); out-of-range ids: gather "
+          f"zeros, scatter skips; {special} special-value checks of both "
+          f"scatters bitwise equal to index_add_", flush=True)
 
-    # times at the main path's shape: 1024 unique ids into the fp32 table;
-    # 256 id batches in rotation so the rows are not all L2-resident
+    # times at the main path's shape: 1024 unique ids into the fp32 table,
+    # PS_ID_SETS id sets in rotation: the rows touched between two uses of
+    # a set (218 MB) are over 4x the L2, so the rows come from HBM. The
+    # card's launch floor just before, on the same clocks
+    floor = launch_floor_ms(dev)
     C = mesh.padded_cols(COLS, np.float32)
     table = torch.zeros((R, C), dtype=torch.float32, device=dev)
     id_sets = torch.from_numpy(np.stack(
         [rng.choice(ROWS, BATCH, replace=False).astype(np.int32)
-         for _ in range(256)])).to(dev)
+         for _ in range(PS_ID_SETS)])).to(dev)
     deltas = torch.from_numpy(
         rng.standard_normal((BATCH, C)).astype(np.float32)).to(dev)
     it = iter(range(1 << 62))
 
     def ids():
-        return id_sets[next(it) % 256]
+        return id_sets[next(it) % PS_ID_SETS]
 
     iters = 400
     times = {
@@ -240,7 +361,14 @@ def kernel_phase(rows, mesh, dev):
                      "bytes": bytes_moved[name]}
     del table, id_sets, deltas
     torch.cuda.empty_cache()
-    return out
+    return out, floor
+
+
+def launch_floor_ms(dev, iters: int = 400) -> float:
+    """The card's launch floor: CUDA-event ms per call of ``fill_`` on a
+    one-element tensor, back to back."""
+    one = torch.zeros(1, device=dev)
+    return device_ms(lambda: one.fill_(1.0), iters)
 
 
 def w2v_counts(vocab: int) -> np.ndarray:
@@ -362,7 +490,7 @@ def coalesced_phase(rows, mesh, dev, card: str):
     # the PS Add: 1024 random unique ids into 1M x 52
     C = mesh.padded_cols(COLS, np.float32)
     id_sets = [torch.from_numpy(rng.choice(ROWS, BATCH, replace=False).astype(np.int32)).to(dev)
-               for _ in range(256)]
+               for _ in range(PS_ID_SETS)]
     times["ps_add"] = time_scatters(
         rows, torch.zeros((R, C), dtype=torch.float32, device=dev), id_sets,
         BATCH, dev, rng)
@@ -460,20 +588,20 @@ def time_gather(rows, table, id_sets, n_live: int, iters: int = 200):
     }
 
 
-def floor_times(rows, mesh, dev, iters: int = 400):
-    """Each kernel's floor: CUDA-event ms per call at the smallest bucket,
+def bucket64_times(rows, mesh, dev, iters: int = 400):
+    """Each kernel's CUDA-event ms per call at the smallest bucket,
     64 unique random ids into the PS phase's 1M x 52 fp32 table, beside
     the library call on the same ids."""
     rng = np.random.default_rng(5)
     C = mesh.padded_cols(COLS, np.float32)
     table = torch.zeros((ROWS + 1, C), dtype=torch.float32, device=dev)
     id_sets = [torch.from_numpy(rng.choice(ROWS, 64, replace=False)
-                                .astype(np.int32)).to(dev) for _ in range(256)]
+                                .astype(np.int32)).to(dev) for _ in range(PS_ID_SETS)]
     deltas = torch.from_numpy(rng.standard_normal((64, C)).astype(np.float32)).to(dev)
     it = iter(range(1 << 62))
 
     def ids():
-        return id_sets[next(it) % 256]
+        return id_sets[next(it) % PS_ID_SETS]
 
     out = {
         "scatter_add_rows": device_ms(lambda: rows.scatter_add_rows(table, ids(), deltas), iters),
@@ -1270,6 +1398,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch finds no CUDA device; this check runs on the "
               "card only", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     import multiverso_tpu_torch as mvt
     from multiverso_tpu_torch.ops import kernels, rows
     from multiverso_tpu_torch.parallel import mesh
@@ -1293,10 +1422,12 @@ def main(argv=None) -> int:
             print("  ptxas:", line.strip())
 
     # 3. kernels
-    results = kernel_phase(rows, mesh, dev)
-    floors = floor_times(rows, mesh, dev)
-    print(f"kernel floors, ms per call at the 64-slot bucket (64 random ids "
-          f"into 1M x 52 fp32; {card}): {json.dumps(floors)}", flush=True)
+    results, floor = kernel_phase(rows, mesh, dev)
+    print(f"launch floor: {floor} ms a call of fill_ on a one-element tensor, "
+          f"back to back ({card})", flush=True)
+    print(f"kernel times, ms per call at the 64-slot bucket (64 random ids "
+          f"into 1M x 52 fp32; {card}): "
+          f"{json.dumps(bucket64_times(rows, mesh, dev))}", flush=True)
 
     # 4. the coalesced scatter; its main path is the word2vec push
     err, times = coalesced_phase(rows, mesh, dev, card)
@@ -1371,13 +1502,16 @@ def main(argv=None) -> int:
         r = results[k]
         print(f"kernel {k}: launches={launches[k]} kernel_ms={r['ms']} "
               f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
-              f"bound_ms={r['bound_ms']} ({card})")
+              f"bound_ms={r['bound_ms']} launch_floor_ms={floor} ({card})")
         table.append({"name": k, "route": "cuda",
                       "source": "multiverso_tpu_torch/csrc/rows.cu",
                       "replaces": where, "launches": launches[k],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                      "launch_floor_ms": floor})
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s, the build included",
+          flush=True)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

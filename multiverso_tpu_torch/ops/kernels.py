@@ -32,13 +32,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _I64 = ctypes.c_int64
 _PTR = ctypes.c_void_p
+_DTYPES = ("f32", "f64", "f16", "i32", "i64")
+# (table, ids, deltas or out, rows, batch, vecs_per_row[, grid, block_x,
+# block_y][, in_l2], stream)
+_ROWS_ARGS = (_PTR, _PTR, _PTR, _I64, _I64, _I64)
+_GEOMETRY = (_I64, _I64, _I64)
 #: C entry point -> argument types; every one returns cudaGetLastError().
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "rows": {
-        **{f"mvt_scatter_add_rows{v}_{s}": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR)
-           for v in ("", "_coalesced")
-           for s in ("f32", "f64", "f16", "i32", "i64")},
-        "mvt_gather_rows": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
+        **{f"mvt_scatter_add_rows_{s}": _ROWS_ARGS + _GEOMETRY + (_I64, _PTR)
+           for s in _DTYPES},
+        **{f"mvt_scatter_add_rows_coalesced_{s}": _ROWS_ARGS + (_PTR,)
+           for s in _DTYPES},
+        "mvt_gather_rows": _ROWS_ARGS + _GEOMETRY + (_PTR,),
     },
 }
 

@@ -32,7 +32,9 @@ Contracts, as in the JAX package (enforced by ``MatrixServer``):
 
 from __future__ import annotations
 
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +47,107 @@ from multiverso_tpu_torch.ops import kernels
 ROW_GROUP = 64
 
 _VECTOR = 16  # bytes each kernel thread moves
+
+# -- launch geometry of the gather and the scatter ------------------------------
+# A block is (block_x lanes across a row) x (block_y slots); the grid walks
+# the batch block_y slots at a time, and a lane walks its row block_x
+# vectors at a time (``csrc/rows.cu``).
+
+#: Most threads a block may have (``kMaxThreads`` in ``csrc/rows.cu``).
+MAX_THREADS = 256
+#: Most slots a block takes in one pass.
+MAX_SLOTS = 32
+#: The grid is capped at this many blocks an SM; larger batches walk.
+WAVES = 16
+#: Index math in the kernels is 32-bit: batch x vectors a row stays below.
+MAX_PAIRS = 1 << 31
+#: (threads a block aims at, most lanes across a row) of the gather and of
+#: the scatter's two paths, from the card's sweeps (``PERF.md`` §6): one
+#: lane a vector, but for the scatter through the SM, whose lanes keep up
+#: to four row and delta loads each in flight (``kInFlight``).
+GATHER_BLOCK = (256, 32)
+SCATTER_BLOCK_L2 = (128, 32)
+SCATTER_BLOCK_SM = (256, 8)
+#: The scatter adds in L2 (atomic reductions) up to this many (slot,
+#: vector) pairs, and through the SM above it, where L2's atomics fall
+#: behind a read-modify-write (``csrc/rows.cu``; the card's crossover is
+#: between 2^18 and 2^19 pairs).
+IN_L2_MAX_PAIRS = 1 << 18
+
+
+class Geometry(NamedTuple):
+    grid: int
+    block_x: int
+    block_y: int
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(batch: int, vecs: int, sm_count: int, threads: int,
+                    lanes: int, waves: int = WAVES) -> Geometry:
+    """The launch for ``batch`` slots of ``vecs`` 16-byte vectors on a card
+    of ``sm_count`` SMs. A row takes up to ``lanes`` lanes; a block takes
+    as many slots as fit ``threads``, fewer while that leaves an SM
+    without a block; the grid stops at ``waves`` blocks an SM and walks
+    the rest. No work is a grid of 0 blocks, which the kernels' entry
+    points do not launch."""
+    if batch < 0 or vecs < 0 or sm_count <= 0:
+        raise ValueError(f"launch_geometry: batch {batch}, vecs {vecs}, "
+                         f"sm_count {sm_count}")
+    if batch * vecs == 0:
+        return Geometry(0, 1, 1)
+    if batch * vecs >= MAX_PAIRS:
+        raise ValueError(f"launch_geometry: batch {batch} x {vecs} vectors a "
+                         f"row is not below 2^31 (32-bit kernel indices)")
+    block_x = min(vecs, lanes, threads, MAX_THREADS)
+    block_y = max(1, min(MAX_SLOTS, threads // block_x, MAX_THREADS // block_x))
+    while block_y > 1 and -(-batch // block_y) < sm_count:
+        block_y -= 1
+    grid = min(-(-batch // block_y), sm_count * waves)
+    return Geometry(grid, block_x, block_y)
+
+
+def scatter_launch(batch: int, vecs: int, sm_count: int):
+    """(geometry, in_l2): whether the scatter adds by atomic reductions in
+    L2 (latency-bound batches) or through the SM (bytes-bound ones), and
+    the launch for that path."""
+    in_l2 = batch * vecs <= IN_L2_MAX_PAIRS
+    block = SCATTER_BLOCK_L2 if in_l2 else SCATTER_BLOCK_SM
+    return launch_geometry(batch, vecs, sm_count, *block), in_l2
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``, read once."""
+    n = _sm_counts.get(index)
+    if n is None:
+        n = _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
+
+
+_entries: dict = {}
+
+
+def _entry(name: str):
+    """The ctypes function ``name`` of ``csrc/rows.cu``, resolved once."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(kernels.load("rows"), name)
+    return fn
+
+
+def _launch(fn, index: int, *args) -> int:
+    """Call ``fn(*args, stream)`` with the current stream of CUDA device
+    ``index``, from that device (entered only when it is not the current
+    one); returns the CUDA error code of the launch."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
+
 
 _SCATTER_DTYPES = {
     torch.float32: "f32",
@@ -71,7 +174,7 @@ def _check(op: str, table: torch.Tensor, ids: torch.Tensor) -> None:
 def _on_card(op: str, table: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (plain version); any other device raises."""
-    if table.device.type == "cuda":
+    if table.is_cuda:
         return True
     if table.device.type == "cpu":
         return False
@@ -121,16 +224,20 @@ def _check_scatter(op: str, table: torch.Tensor, ids: torch.Tensor,
 def _launch_scatter(op: str, entry: str, table: torch.Tensor,
                     ids: torch.Tensor, deltas: torch.Tensor) -> int:
     """Launch ``<entry>_<dtype>`` of ``csrc/rows.cu`` on the table's
-    current stream; returns the CUDA error code of the launch."""
+    current stream (the simple scatter with its launch geometry); returns
+    the CUDA error code of the launch."""
     suffix = _SCATTER_DTYPES.get(table.dtype)
     if suffix is None:
         raise ValueError(f"{op}: no kernel for dtype {table.dtype}")
     vecs = _kernel_args(op, ids, table, deltas)
-    fn = getattr(kernels.load("rows"), f"{entry}_{suffix}")
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        return fn(table.data_ptr(), ids.data_ptr(), deltas.data_ptr(),
-                  table.shape[0], ids.shape[0], vecs, stream)
+    fn = _entry(f"{entry}_{suffix}")
+    index, batch = table.get_device(), ids.shape[0]
+    args = (table.data_ptr(), ids.data_ptr(), deltas.data_ptr(), table.shape[0],
+            batch, vecs)
+    if entry == "mvt_scatter_add_rows":
+        geometry, in_l2 = scatter_launch(batch, vecs, _sm_count(index))
+        args += (*geometry, in_l2)
+    return _launch(fn, index, *args)
 
 
 def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
@@ -220,12 +327,12 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
                       device=table.device)
     vecs = _kernel_args(op, ids, table, out)
-    fn = kernels.load("rows").mvt_gather_rows
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        code = fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                  table.shape[0], ids.shape[0], vecs, stream)
-        gather_rows.launches += 1
+    fn = _entry("mvt_gather_rows")
+    index, batch = table.get_device(), ids.shape[0]
+    geometry = launch_geometry(batch, vecs, _sm_count(index), *GATHER_BLOCK)
+    code = _launch(fn, index, table.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                   table.shape[0], batch, vecs, *geometry)
+    gather_rows.launches += 1
     _raise_on_error(op, code)
     return out
 

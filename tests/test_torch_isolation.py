@@ -15,7 +15,8 @@ import multiverso_tpu_torch as mvt
 from multiverso_tpu_torch.config import FLAGS as TORCH_FLAGS
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "multiverso_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "multiverso_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "rows_variants.py"]
 
 
 def _forbidden(module: str) -> bool:
