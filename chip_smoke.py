@@ -41,7 +41,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    API's other paths (whole-table and device-resident IO, sparse
    staleness, an int32 table, the array table's device sync) against
    numpy, and the host time of each stage of one Add and one Get with a
-   single worker.
+   single worker. At the end of the drive the three tables (1.2 GB at
+   logical dims, the AdaGrad state for 4 workers) are snapshotted with
+   ``CheckpointDriver`` into a temporary directory; the runtime restarts,
+   the tables are re-created and ``restore_tables`` loads them: data and
+   states bitwise equal to host copies taken before the snapshot, the
+   column pads and sentinel rows zero (store and restore GB/s).
 6. word2vec at the full width of the bench recipe (vocab 100,000, dim 128,
    window 5, 5 negatives shared by 8 centres, 32,768-pair chunks, 8192-token
    blocks, zipf corpus from seed 0): one group-1 ``PSTrainer`` submission on
@@ -71,7 +76,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    table (10-class softmax) and the dense FTRL table; each card run
    against the CPU on one minibatch, then timed. Phases 7-9 print the
    scatter and gather launch counts over the phase; 7 and 8 need both.
-10. The run's seconds, one JSON line listing every kernel, then the last line
+10. Checkpoints at full width. Resume exactness: one worker plays a
+   seeded stream of 1024-row rounds (an Add to the 1M x 50 default and
+   AdaGrad matrices, a Get) 2R times uninterrupted, then R times,
+   snapshot, restart, restore, R more: final data and AdaGrad states
+   bitwise equal (adds/s of each run). word2vec from a file: a zipf corpus
+   (the bench vocabulary, 4.5M tokens) written as text, read by
+   ``Dictionary.from_text_file(min_count=5)`` and ``iter_token_blocks``
+   (tokens/s), two group-64 ``PSTrainer`` submissions, snapshot, restart,
+   restore (bitwise), two more, against four uninterrupted ones with the
+   same injected draws (rtol 1e-4, atol 1e-6); the embeddings through
+   ``save_embeddings``/``load_embeddings`` byte for byte (words/s before
+   and after). Logistic regression from config files: ``Configure`` ->
+   ``make_reader`` -> ``PSLogReg`` on the sparse FTRL table (a CTR libsvm
+   file of 32 minibatches of 256), the sparse table and the dense FTRL
+   table, the reader's batches equal to the data written; the three
+   tables restored bitwise (examples/s). The scatter and gather must
+   launch over the resumed PS rounds and the resumed word2vec
+   submissions.
+11. The run's seconds, one JSON line listing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
@@ -84,6 +107,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -136,6 +160,12 @@ MNIST_FEATURES = 784
 LR_BATCHES = 32
 LR_RTOL, LR_ATOL = 1e-5, 1e-6
 JOIN_S = 600
+# checkpoints: 1024-row rounds of the resume-exactness stream (R of 2R
+# before the restart); the word2vec corpus (the bench vocabulary, every
+# word at least min_count = 5 times, lines of 1000 tokens)
+RESUME_ROUNDS = 64
+W2V_FILE_TOKENS = 4_000_000
+W2V_LINE_TOKENS = 1000
 
 
 def run(cmd):
@@ -627,19 +657,28 @@ def adagrad_mirror(mirror, g_sqr, ids, vals, lr, rho):
     mirror[uniq] -= np.float32(lr) * d / np.sqrt(g + np.float32(rho))
 
 
+def ps_tables(mvt, num_row: int, num_col: int) -> list:
+    """The PS phase's tables, in creation order (a restart re-creates them
+    in this order, so their ids match a snapshot's): the default-updater
+    matrix, the AdaGrad matrix and the array table."""
+    return [mvt.create_table("matrix", num_row, num_col),
+            mvt.create_table("matrix", num_row, num_col, updater_type="adagrad"),
+            mvt.create_table("array", num_row)]
+
+
 def ps_phase(mvt, rows, device: str, rounds: int, num_row: int = ROWS,
-             num_col: int = COLS, batch: int = BATCH, seed: int = 0):
+             num_col: int = COLS, batch: int = BATCH, seed: int = 0,
+             snapshot=None):
     """Drive the parameter server through its user entry points and check
     every table against a host mirror. Returns the end-to-end metrics and
-    the kernels' launch counts over the drive."""
+    the kernels' launch counts over the drive. ``snapshot(tables)``, when
+    given, runs on the checked tables before the runtime stops."""
     from multiverso_tpu_torch.dashboard import Dashboard
 
     mvt.init(device=device, local_workers=WORKERS)
     try:
-        mat = mvt.create_table("matrix", num_row, num_col)
-        ada = mvt.create_table("matrix", num_row, num_col, updater_type="adagrad")
+        mat, ada, arr = ps_tables(mvt, num_row, num_col)
         arr_size = num_row
-        arr = mvt.create_table("array", arr_size)
         opt = mvt.AddOption(learning_rate=0.1, rho=0.1)
         lat = {w: {"add": [], "get": []} for w in range(WORKERS)}
         errors = []
@@ -745,6 +784,8 @@ def ps_phase(mvt, rows, device: str, rounds: int, num_row: int = ROWS,
             "fused_applies": fused, "fused_adds": batched,
             "seconds": wall,
         }
+        if snapshot is not None:
+            snapshot([mat, ada, arr])
         return metrics, launches
     finally:
         mvt.shutdown()
@@ -1382,6 +1423,461 @@ def logreg_phase(mvt, rows, device: str, card: str, batches: int = LR_BATCHES,
     return metrics, launches
 
 
+# -- checkpoints -------------------------------------------------------------
+
+def host_state(tables) -> list:
+    """Each table's state as host numpy arrays at logical dims (data, then
+    updater states or accumulators by name; host-dict tables as sorted
+    keys and their rows), read on the dispatcher after every queued Add."""
+    from multiverso_tpu_torch.runtime.zoo import Zoo
+    from multiverso_tpu_torch.tables.array_table import ArrayServer
+    from multiverso_tpu_torch.tables.ftrl_table import FTRLServer
+    from multiverso_tpu_torch.tables.kv_table import KVServer
+    from multiverso_tpu_torch.tables.matrix_table import MatrixServer
+    from multiverso_tpu_torch.tables.sparse_table import (SparseFTRLServer,
+                                                          SparseServer)
+
+    def read():
+        out = []
+        for t in tables:
+            s = t._server_table
+            if isinstance(s, (MatrixServer, ArrayServer)):
+                logical = ((slice(0, s.num_row), slice(0, s.num_col))
+                           if isinstance(s, MatrixServer) else (slice(0, s.size),))
+                out.append([s._host_read(s.data[logical])] + [
+                    s._host_read(s.states[k][(slice(None),) + logical])
+                    for k in sorted(s.states)])
+            elif isinstance(s, FTRLServer):
+                out.append([s._host_read(s.z[: s.size]),
+                            s._host_read(s.n[: s.size])])
+            elif isinstance(s, SparseFTRLServer):
+                keys = sorted(s._z)
+                out.append([np.array(keys, np.int64)] + [
+                    np.stack([acc[k] for k in keys]) if keys
+                    else np.zeros((0, s.width), np.float32)
+                    for acc in (s._z, s._n)])
+            elif isinstance(s, SparseServer):
+                out.append(list(s.process_get((None, None))))
+            elif isinstance(s, KVServer):
+                items = sorted(s._store.items())
+                out.append([np.array([k for k, _ in items], np.int64),
+                            np.array([v for _, v in items], s.value_dtype)])
+            else:
+                raise TypeError(f"host_state: {type(s).__name__}")
+        return out
+
+    return Zoo.instance().server.run_serialized(read, timeout=None)
+
+
+def assert_same_state(got, want, what: str) -> None:
+    """Bitwise equality of two ``host_state`` results (dtype, shape, bits)."""
+    for i, (g_arrs, w_arrs) in enumerate(zip(got, want, strict=True)):
+        for j, (g, w) in enumerate(zip(g_arrs, w_arrs, strict=True)):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{what}: table {i} array {j}: {g.dtype}"
+                                     f"{g.shape} != {w.dtype}{w.shape}")
+            word = np.dtype(f"u{g.dtype.itemsize}")
+            if not np.array_equal(np.ascontiguousarray(g).view(word),
+                                  np.ascontiguousarray(w).view(word)):
+                raise AssertionError(f"{what}: table {i} array {j} differs")
+
+
+def snapshot_tables(tables, directory: str) -> dict:
+    """Host copies of the tables, then one ``CheckpointDriver`` snapshot
+    into ``directory``: the copies, the seconds of the copies (the same
+    device-to-host reads the snapshot makes), the bytes written and the
+    snapshot's seconds."""
+    from multiverso_tpu_torch.checkpoint import CheckpointDriver
+
+    t0 = time.perf_counter()
+    before = host_state(tables)
+    host_read_s = time.perf_counter() - t0
+    driver = CheckpointDriver(tables, directory)
+    t0 = time.perf_counter()
+    driver.snapshot()
+    seconds = time.perf_counter() - t0
+    driver.close()
+    size = sum(os.path.getsize(os.path.join(directory, f))
+               for f in os.listdir(directory) if f.endswith(".mvckpt"))
+    return {"before": before, "store_s": seconds, "bytes": size,
+            "host_read_s": host_read_s}
+
+
+def restore_and_check(tables, directory: str, snap: dict, what: str) -> float:
+    """``restore_tables`` into freshly created tables, held bitwise against
+    the snapshot's host copies; returns the restore's seconds."""
+    from multiverso_tpu_torch.checkpoint import restore_tables
+
+    t0 = time.perf_counter()
+    n = restore_tables(tables, directory)
+    seconds = time.perf_counter() - t0
+    if n != len(tables):
+        raise AssertionError(f"{what}: restored {n} of {len(tables)} tables")
+    assert_same_state(host_state(tables), snap["before"], what)
+    return seconds
+
+
+def io_rates(snap: dict, restore_s: float) -> dict:
+    return {"bytes": snap["bytes"], "host_read_s": snap["host_read_s"],
+            "store_s": snap["store_s"],
+            "store_gb_per_s": snap["bytes"] / snap["store_s"] / 1e9,
+            "restore_s": restore_s,
+            "restore_gb_per_s": snap["bytes"] / restore_s / 1e9}
+
+
+def ps_restore(mvt, device: str, directory: str, snap: dict,
+               num_row: int = ROWS, num_col: int = COLS) -> dict:
+    """Restart the runtime, re-create the PS phase's tables and restore
+    its snapshot: data and AdaGrad states bitwise equal to the host copies
+    taken before it; the column pads and the sentinel rows zero."""
+    mvt.init(device=device, local_workers=WORKERS)
+    try:
+        tables = ps_tables(mvt, num_row, num_col)
+        restore_s = restore_and_check(tables, directory, snap, "PS restore")
+        for t in tables[:2]:
+            s = t._server_table
+            for arr in [s.data] + list(s.states.values()):
+                if (arr[..., s.num_row:, :].count_nonzero().item()
+                        or arr[..., s.num_col:].count_nonzero().item()):
+                    raise AssertionError("PS restore: a pad or the sentinel "
+                                         "row is not zero")
+        # the restore's share that is reading the files (page cache)
+        t0 = time.perf_counter()
+        for f in os.listdir(directory):
+            with open(os.path.join(directory, f), "rb") as fp:
+                fp.read()
+        return dict(io_rates(snap, restore_s),
+                    file_read_s=time.perf_counter() - t0)
+    finally:
+        mvt.shutdown()
+
+
+def resume_phase(mvt, rows, device: str, ckpt_dir: str,
+                 rounds: int = RESUME_ROUNDS, num_row: int = ROWS,
+                 num_col: int = COLS, batch: int = BATCH, seed: int = 9):
+    """Resume exactness on the PS tables with one worker: run A plays 2R
+    rounds of a seeded stream (a 1024-row Add to the default and the
+    AdaGrad matrix, a 1024-row Get); run B plays R rounds, snapshots,
+    restarts, restores and plays the other R. Final data and AdaGrad
+    states must be bitwise equal (unique ids after the merge: no atomics).
+    Returns (metrics, the kernels' launch counts over run B's resumed
+    rounds)."""
+    rng = np.random.default_rng(seed)
+    stream = [(rng.integers(0, num_row, batch).astype(np.int32),
+               rng.standard_normal((batch, num_col), dtype=np.float32),
+               rng.integers(0, num_row, batch).astype(np.int32),
+               rng.standard_normal((batch, num_col), dtype=np.float32),
+               rng.integers(0, num_row, batch).astype(np.int32))
+              for _ in range(2 * rounds)]
+    opt = mvt.AddOption(worker_id=0, learning_rate=0.1, rho=0.1)
+
+    def start():
+        mvt.init(device=device, local_workers=1)
+        return [mvt.create_table("matrix", num_row, num_col),
+                mvt.create_table("matrix", num_row, num_col, updater_type="adagrad")]
+
+    def play(tables, part) -> float:
+        mat, ada = tables
+        t0 = time.perf_counter()
+        with mvt.worker(0):
+            for ids, vals, ada_ids, ada_vals, gids in part:
+                mat.add(vals, row_ids=ids)
+                ada.add(ada_vals, row_ids=ada_ids, option=opt)
+                got = mat.get(gids)
+                if got.shape != (batch, num_col) or not np.isfinite(got).all():
+                    raise AssertionError(f"resume: bad Get reply {got.shape}")
+        return 2 * len(part) / (time.perf_counter() - t0)
+
+    metrics = {"rounds": 2 * rounds}
+    tables = start()
+    try:
+        metrics["uninterrupted_adds_per_s"] = play(tables, stream)
+        want = host_state(tables)
+    finally:
+        mvt.shutdown()
+    tables = start()
+    try:
+        metrics["before_snapshot_adds_per_s"] = play(tables, stream[:rounds])
+        snap = snapshot_tables(tables, ckpt_dir)
+    finally:
+        mvt.shutdown()
+    tables = start()
+    try:
+        restore_s = restore_and_check(tables, ckpt_dir, snap, "resume restore")
+        del snap["before"]
+        for k in (rows.gather_rows, rows.scatter_add_rows):
+            k.launches = 0
+        metrics["after_restore_adds_per_s"] = play(tables, stream[rounds:])
+        launches = {k.__name__: k.launches
+                    for k in (rows.gather_rows, rows.scatter_add_rows)}
+        assert_same_state(host_state(tables), want, "resume against uninterrupted")
+    finally:
+        mvt.shutdown()
+    metrics.update(io_rates(snap, restore_s))
+    return metrics, launches
+
+
+def write_corpus(path: str, rng, vocab: int, tokens: int,
+                 min_count: int, line_tokens: int = W2V_LINE_TOKENS) -> int:
+    """A zipf corpus over ``vocab`` words (the bench's counts) as a text
+    file, every word at least ``min_count`` times; returns its tokens."""
+    ids = np.concatenate([zipf_tokens(rng, tokens, vocab),
+                          np.repeat(np.arange(vocab, dtype=np.int32), min_count)])
+    ids = ids[rng.permutation(len(ids))]
+    words = np.array([f"w{i}" for i in range(vocab)])[ids]
+    with open(path, "w") as fp:
+        for i in range(0, len(words), line_tokens):
+            fp.write(" ".join(words[i:i + line_tokens].tolist()) + "\n")
+    return len(ids)
+
+
+def word2vec_file_phase(mvt, rows, device: str, card: str, ckpt_dir: str,
+                        w2v=None, tokens: int = W2V_FILE_TOKENS,
+                        group: int = W2V_GROUP, submissions: int = 4,
+                        seed: int = 0):
+    """See ``_word2vec_file_phase``; it runs with deterministic algorithms."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _word2vec_file_phase(mvt, rows, device, card, ckpt_dir, w2v,
+                                    tokens, group, submissions, seed)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _word2vec_file_phase(mvt, rows, device: str, card: str, ckpt_dir: str,
+                         w2v, tokens: int, group: int, submissions: int,
+                         seed: int):
+    """word2vec from a text file at the bench recipe's width: the corpus
+    read by ``Dictionary.from_text_file`` and ``iter_token_blocks``, a
+    ``PSTrainer`` trained ``submissions // 2`` group-``group`` submissions,
+    snapshotted (tables and the trainer's host RNG), restarted, restored
+    bitwise and trained on; held against an uninterrupted run with the
+    same injected draws, bitwise and so within rtol W2V_RTOL, atol
+    W2V_ATOL. Both runs are deterministic: in the default mode the
+    step's ``index_add_`` sums duplicate rows with atomics, whose order
+    alone moved one weight of 12.8M by 1.4e-6 (4.5e-4 relative) over two
+    submissions on an NVIDIA H100 80GB HBM3. Then the embeddings through
+    ``save_embeddings``/``load_embeddings``. Returns (metrics, the
+    kernels' launch counts over the resumed submissions)."""
+    from multiverso_tpu_torch import convert
+    from multiverso_tpu_torch.models.vocab import Dictionary, iter_token_blocks
+    from multiverso_tpu_torch.models.word2vec import (PSTrainer, Word2VecConfig,
+                                                      init_params, load_embeddings,
+                                                      save_embeddings)
+
+    w2v = dict(W2V, **(w2v or {}))
+    rng = np.random.default_rng(seed)
+    corpus = os.path.join(ckpt_dir, "corpus.txt")
+    written = write_corpus(corpus, rng, w2v["vocab_size"], tokens, 5)
+    metrics = {"corpus_tokens": written, "corpus_bytes": os.path.getsize(corpus),
+               "deterministic_algorithms": True}
+    t0 = time.perf_counter()
+    d = Dictionary.from_text_file(corpus, min_count=5)
+    t1 = time.perf_counter()
+    blocks = list(iter_token_blocks(corpus, d, w2v["block_tokens"]))
+    t2 = time.perf_counter()
+    metrics["dictionary_tokens_per_s"] = written / (t1 - t0)
+    metrics["token_blocks_tokens_per_s"] = written / (t2 - t1)
+    if len(d) != w2v["vocab_size"] or int(d.counts.sum()) != written:
+        raise AssertionError(f"word2vec file: {len(d)} words, "
+                             f"{int(d.counts.sum())} tokens counted")
+    if sum(len(b) for b in blocks) != written:
+        raise AssertionError("word2vec file: blocks lose tokens")
+    config = Word2VecConfig(**w2v)
+    subs = [np.concatenate(blocks[i * group:(i + 1) * group])
+            for i in range(submissions)]
+    init = init_params(config, device="cpu")
+    V = config.vocab_size
+    w_in0, w_out0 = init["w_in"][:V].numpy(), init["w_out"][:V].numpy()
+
+    def trainer():
+        mvt.init(device=device, local_workers=1)
+        tr = PSTrainer(config, d)
+        return tr, [tr.input_table, tr.output_table, tr.count_table]
+
+    def train(tr, part) -> float:
+        t0 = time.perf_counter()
+        for sub in part:
+            loss = tr.train_block(sub, lr=config.lr)  # ends on a stats read
+            if not np.isfinite(loss):
+                raise AssertionError(f"word2vec file: loss {loss}")
+        return sum(len(s) for s in part) / (time.perf_counter() - t0)
+
+    half = submissions // 2
+    tr, tables = trainer()
+    try:
+        convert.load_state(tr.input_table, w_in0, {})
+        convert.load_state(tr.output_table, w_out0, {})
+        tr.draw_hook = numpy_draws(7, config.window, config.negatives)
+        metrics["uninterrupted_words_per_s"] = train(tr, subs)
+        want = [t.get() for t in tables[:2]]
+    finally:
+        mvt.shutdown()
+    tr, tables = trainer()
+    try:
+        convert.load_state(tr.input_table, w_in0, {})
+        convert.load_state(tr.output_table, w_out0, {})
+        hook = tr.draw_hook = numpy_draws(7, config.window, config.negatives)
+        metrics["before_snapshot_words_per_s"] = train(tr, subs[:half])
+        snap = snapshot_tables(tables, os.path.join(ckpt_dir, "w2v"))
+        host = (tr.rng.bit_generator.state, tr.words_trained)
+    finally:
+        mvt.shutdown()
+    # the trainer's transaction is registered by its constructor, before
+    # the restore writes into the tables it closes over
+    tr, tables = trainer()
+    try:
+        restore_s = restore_and_check(tables, os.path.join(ckpt_dir, "w2v"),
+                                      snap, "word2vec restore")
+        tr.rng.bit_generator.state, tr.words_trained = host
+        tr.draw_hook = hook
+        for k in (rows.gather_rows, rows.scatter_add_rows):
+            k.launches = 0
+        metrics["after_restore_words_per_s"] = train(tr, subs[half:])
+        launches = {k.__name__: k.launches
+                    for k in (rows.gather_rows, rows.scatter_add_rows)}
+        got = [t.get() for t in tables[:2]]
+        words = int(tr.count_table.get(0))
+        emb_path = os.path.join(ckpt_dir, "emb.bin")
+        save_embeddings(d, got[0], emb_path, binary=True)
+    finally:
+        mvt.shutdown()
+    if words != sum(len(s) for s in subs):
+        raise AssertionError(f"word2vec file: word count {words}")
+    for name, g, w in zip(("w_in", "w_out"), got, want):
+        np.testing.assert_allclose(g, w, rtol=W2V_RTOL, atol=W2V_ATOL,
+                                   err_msg=f"word2vec file: resumed {name} != "
+                                   "uninterrupted")
+        np.testing.assert_array_equal(g, w, err_msg=f"word2vec file: resumed "
+                                      f"{name} not bitwise equal to the "
+                                      "uninterrupted run (deterministic)")
+    words_read, emb = load_embeddings(emb_path, binary=True)
+    again = os.path.join(ckpt_dir, "emb_again.bin")
+    save_embeddings(d, emb, again, binary=True)
+    with open(emb_path, "rb") as a, open(again, "rb") as b:
+        same_bytes = a.read() == b.read()
+    if words_read != d.words or not np.array_equal(emb, got[0]) or not same_bytes:
+        raise AssertionError("word2vec file: embeddings do not round-trip")
+    metrics["embedding_bytes"] = os.path.getsize(emb_path)
+    metrics.update(io_rates(snap, restore_s))
+    print(f"word2vec from a {metrics['corpus_bytes']}-byte file on {card}: "
+          f"read, trained {half} + {submissions - half} group-{group} "
+          f"submissions around a restore (bitwise), resumed bitwise equal to "
+          f"the uninterrupted run (deterministic algorithms), embeddings "
+          f"round-trip byte for byte", flush=True)
+    return metrics, launches
+
+
+def write_lr_files(directory: str, rng, ctr_keys: int, batches: int,
+                   dense_batches: int, features: int) -> dict:
+    """The CTR libsvm file, a dense binary-digits file and three key=value
+    configs as ``examples/logreg_train.py`` reads them. Returns the paths,
+    and the CTR data as generated."""
+    ctr = ctr_data(rng, batches * 256, ctr_keys)
+    ctr_file = os.path.join(directory, "ctr.libsvm")
+    with open(ctr_file, "w") as fp:
+        for y, keys in zip(ctr["y"], ctr["idx"]):
+            fp.write(f"{y} " + " ".join(f"{k}:1" for k in keys) + "\n")
+    digits = digits_data(rng, dense_batches * 256, features)
+    dense_file = os.path.join(directory, "digits.data")
+    with open(dense_file, "w") as fp:
+        for y, x in zip(digits["y"] >= 5, digits["x"]):
+            fp.write(f"{int(y)} " + " ".join(f"{v:.6g}" for v in x) + "\n")
+    common = "use_ps=true\nminibatch_size=256\ntrain_epoch=1\n"
+    ctr_conf = (f"input_size={ctr_keys}\nsparse=true\nmax_nnz={CTR_FIELDS}\n"
+                f"train_file={ctr_file}\n" + common)
+    confs = {
+        # examples/ftrl_ctr.py's step on the sparse FTRL table
+        "ctr_sparse_ftrl": ctr_conf + ("objective_type=ftrl\nalpha=0.5\n"
+                                       "lambda1=0.5\nsync_frequency=4\n"),
+        "ctr_sparse_sgd": ctr_conf + ("updater_type=sgd\nlearning_rate=0.1\n"
+                                      "pipeline=false\n"),
+        "digits_dense_ftrl": (f"input_size={features}\ntrain_file={dense_file}\n"
+                              "objective_type=ftrl\nalpha=0.02\nlambda1=0.5\n"
+                              "sync_frequency=4\n" + common),
+    }
+    paths = {}
+    for name, text in confs.items():
+        paths[name] = os.path.join(directory, f"{name}.conf")
+        with open(paths[name], "w") as fp:
+            fp.write("# logistic regression, key=value (lr_io.Configure)\n" + text)
+    return {"confs": paths, "ctr": ctr, "ctr_file": ctr_file}
+
+
+def logreg_file_phase(mvt, rows, device: str, card: str, ckpt_dir: str,
+                      batches: int = LR_BATCHES, dense_batches: int = 8,
+                      ctr_keys: int = CTR_KEYS, features: int = MNIST_FEATURES,
+                      seed: int = 12):
+    """Logistic regression from config files: ``Configure`` ->
+    ``make_reader`` -> ``PSLogReg`` on the sparse FTRL table (the CTR
+    file), the sparse table (sgd, the same file) and the dense FTRL table
+    (digits), the reader in the loop; its CTR batches equal the generated
+    data. Then the three tables snapshotted, the runtime restarted, the
+    models re-created and the snapshot restored bitwise. Returns
+    (metrics, the kernels' launch counts over the training)."""
+    from multiverso_tpu_torch.models.logreg import make_model
+    from multiverso_tpu_torch.models.lr_io import Configure, make_reader
+
+    files = write_lr_files(ckpt_dir, np.random.default_rng(seed), ctr_keys,
+                           batches, dense_batches, features)
+    confs = {name: Configure(path) for name, path in files["confs"].items()}
+    ctr = files["ctr"]
+    metrics = {}
+
+    def models():
+        mvt.init(device=device, local_workers=1)
+        return {name: make_model(conf.model_config()) for name, conf in confs.items()}
+
+    built = models()
+    try:
+        for k in (rows.gather_rows, rows.scatter_add_rows):
+            k.launches = 0
+        for name, model in built.items():
+            conf = confs[name]
+            reader = make_reader(conf.reader_type, conf.train_file,
+                                 conf.minibatch_size, conf.input_size,
+                                 sparse=conf.sparse, max_nnz=conf.max_nnz)
+            seen, losses, parts = 0, [], []
+            t0 = time.perf_counter()
+            try:
+                for batch in reader.epochs(conf.train_epoch):
+                    if name == "ctr_sparse_ftrl":
+                        parts.append({k: batch[k].copy() for k in ("y", "idx")})
+                    losses.append(model.update(batch))
+                    seen += len(batch["y"])
+                model.finish()
+            finally:
+                reader.close()
+            wall = time.perf_counter() - t0
+            if not (np.isfinite(losses).all() and np.isfinite(model.weights()).all()):
+                raise AssertionError(f"logreg file {name}: non-finite loss or weights")
+            if parts and not all(np.array_equal(
+                    np.concatenate([p[k] for p in parts]), ctr[k])
+                    for k in ("y", "idx")):
+                raise AssertionError("logreg file: the reader's batches differ "
+                                     "from the data written")
+            metrics[name] = {"examples": seen, "examples_per_s": seen / wall,
+                             "first_loss": losses[0], "last_loss": losses[-1]}
+        launches = {k.__name__: k.launches
+                    for k in (rows.gather_rows, rows.scatter_add_rows)}
+        snap = snapshot_tables([m.table for m in built.values()],
+                               os.path.join(ckpt_dir, "logreg"))
+    finally:
+        mvt.shutdown()
+    built = models()
+    try:
+        restore_s = restore_and_check([m.table for m in built.values()],
+                                      os.path.join(ckpt_dir, "logreg"), snap,
+                                      "logreg restore")
+    finally:
+        mvt.shutdown()
+    del snap["before"]
+    metrics.update(io_rates(snap, restore_s))
+    print(f"logreg from config files on {card}: three PS models trained with "
+          f"the reader in the loop, three tables restored bitwise", flush=True)
+    return metrics, launches
+
+
 KERNELS = {
     "scatter_add_rows":"multiverso_tpu/ops/pallas_rows.py:172",
     "gather_rows": "multiverso_tpu/ops/pallas_rows.py:107",
@@ -1398,6 +1894,12 @@ def main(argv=None) -> int:
         print("chip_smoke: torch finds no CUDA device; this check runs on the "
               "card only", file=sys.stderr)
         return 1
+    # snapshots, the corpus and the logreg files; removed on the way out
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as scratch:
+        return smoke(args, scratch)
+
+
+def smoke(args, scratch: str) -> int:
     started = time.perf_counter()
     import multiverso_tpu_torch as mvt
     from multiverso_tpu_torch.ops import kernels, rows
@@ -1437,12 +1939,20 @@ def main(argv=None) -> int:
         "plain_ms": push["plain_ms"], "library_ms": push["index_add_ms"],
         "bound_ms": push["bound_ms"], "bound_by": push["bound_by"]}
 
-    # 5. the parameter server
-    metrics, launches = ps_phase(mvt, rows, "cuda", args.rounds)
+    # 5. the parameter server; its tables snapshotted, then restored
+    snap, ps_dir = {}, os.path.join(scratch, "ps")
+    metrics, launches = ps_phase(
+        mvt, rows, "cuda", args.rounds,
+        snapshot=lambda tables: snap.update(snapshot_tables(tables, ps_dir)))
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{k}: no launch on the main path")
     print(f"PS path on {card}: {json.dumps(metrics)}", flush=True)
+    ps_ckpt = ps_restore(mvt, "cuda", ps_dir, snap)
+    del snap
+    print(f"PS checkpoint on {card}: the 1M x 50 SGD and AdaGrad matrices "
+          f"(4-worker state) and the array table stored and restored after a "
+          f"restart, bitwise equal: {json.dumps(ps_ckpt)}", flush=True)
     print(f"launches per 1024-row Add: scatter "
           f"{launches['scatter_add_rows'] / metrics['matrix_adds']:.3f}; per "
           f"1024-row Get: gather {launches['gather_rows'] / metrics['matrix_gets']:.3f}")
@@ -1496,7 +2006,30 @@ def main(argv=None) -> int:
     print(f"logreg on {card}: {json.dumps(lr_metrics)}; launches over the "
           f"phase: {json.dumps(lr_launches)}", flush=True)
 
-    # 10. the kernel line, then the verdict
+    # 10. checkpoints: resume exactness, word2vec and logreg from files
+    resume, resume_launches = resume_phase(mvt, rows, "cuda",
+                                           os.path.join(scratch, "resume"))
+    print(f"resume on {card}: {resume['rounds']} rounds uninterrupted equal "
+          f"bitwise to {resume['rounds'] // 2} + {resume['rounds'] // 2} "
+          f"around a restart: {json.dumps(resume)}; launches over the resumed "
+          f"rounds: {json.dumps(resume_launches)}", flush=True)
+    w2v_file, w2v_file_launches = word2vec_file_phase(mvt, rows, "cuda", card,
+                                                      scratch)
+    print(f"word2vec from a file on {card}: {json.dumps(w2v_file)}; launches "
+          f"over the resumed submissions: {json.dumps(w2v_file_launches)}",
+          flush=True)
+    lr_file, lr_file_launches = logreg_file_phase(mvt, rows, "cuda", card,
+                                                  scratch)
+    print(f"logreg from config files on {card}: {json.dumps(lr_file)}; "
+          f"launches over the training: {json.dumps(lr_file_launches)}",
+          flush=True)
+    for what, counts in (("the resumed PS rounds", resume_launches),
+                         ("the resumed word2vec submissions", w2v_file_launches)):
+        for k, n in counts.items():
+            if n <= 0:
+                raise AssertionError(f"{k}: no launch on {what}")
+
+    # 11. the kernel line, then the verdict
     table = []
     for k, where in KERNELS.items():
         r = results[k]

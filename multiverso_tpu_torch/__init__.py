@@ -16,6 +16,11 @@ Public surface (MV_* parity, the part ported so far):
     create_table("array" | "matrix" | "kv") / register_table_type
     worker(slot)                   (bind a logical worker context to a thread)
 
+Checkpoints live in :mod:`multiverso_tpu_torch.checkpoint` (``store_table``,
+``load_table``, ``restore_tables``, ``CheckpointDriver``), as in the JAX
+package, over the stream layer of :mod:`multiverso_tpu_torch.io`; their
+files load in either package.
+
 ``init`` puts the tables on ``cuda`` unless the caller asks for the CPU
 (``init(device="cpu")`` or ``-device=cpu``); it raises when CUDA is absent
 and the CPU was not asked for.

@@ -205,6 +205,8 @@ define_double("sync_stall_seconds", 30.0,
 define_bool("deterministic", False,
             "async PS applies adds in (round, worker_id) order so the final "
             "table state is bitwise reproducible (DeterministicServer)")
+define_int("omp_threads", 4, "host-side worker threads for CPU fallbacks "
+           "(the logistic-regression readers' parse pool)")
 define_string("updater_type", "default", "server-side optimizer: default|sgd|adagrad|momentum_sgd|dcasgd")
 define_bool("is_pipelined", False, "double-buffered pipelined get")
 define_int("local_workers", 1, "logical worker contexts hosted by this process")

@@ -12,13 +12,16 @@ The logistic-regression state crosses the same way:
 :func:`load_logreg_weights` (a ``LogReg``'s weights, or a ``PSLogReg``'s
 array table), :func:`load_ftrl_state` (an FTRL table's ``z``/``n``, dense
 or sparse) and :func:`load_sparse_state` (a sparse table's live keys and
-values). Nothing here imports the JAX package: the caller hands over plain
-arrays.
+values); a host KV table's entries cross with :func:`load_kv_state`.
+Nothing here imports the JAX package: the caller hands over plain arrays.
+A checkpoint file (``checkpoint.py``) is the second way across: the JAX
+package's ``store_table`` writes the same state, and the port's
+``load_table`` installs it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -27,6 +30,7 @@ from multiverso_tpu_torch.parallel import mesh as mesh_lib
 from multiverso_tpu_torch.runtime.zoo import Zoo
 from multiverso_tpu_torch.tables.array_table import ArrayServer
 from multiverso_tpu_torch.tables.ftrl_table import FTRLServer
+from multiverso_tpu_torch.tables.kv_table import KVServer
 from multiverso_tpu_torch.tables.matrix_table import MatrixServer
 from multiverso_tpu_torch.tables.sparse_table import (SparseFTRLServer,
                                                       SparseServer)
@@ -108,6 +112,23 @@ def load_sparse_state(table, keys: np.ndarray, values: np.ndarray) -> None:
                          f"{len(values)} value rows")
     server._check_keys(keys)
     store = {int(k): v.copy() for k, v in zip(keys, values)}
+
+    def install() -> None:
+        server._store = store
+
+    Zoo.instance().server.run_serialized(install)
+
+
+def load_kv_state(table, items: Mapping[int, Any]) -> None:
+    """Replace a host KV table's entries with ``items`` (key -> value, as
+    the JAX ``KVWorker.get()`` returns them); values take the table's
+    value dtype."""
+    server = getattr(table, "_server_table", table)
+    if type(server) is not KVServer:
+        raise TypeError(f"load_kv_state: unsupported table "
+                        f"{type(server).__name__}")
+    cast = server.value_dtype.type
+    store = {int(k): cast(v) for k, v in items.items()}
 
     def install() -> None:
         server._store = store

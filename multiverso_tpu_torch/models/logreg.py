@@ -18,8 +18,10 @@ optional prefetch (``pipeline``).
 the CPU; :class:`PSLogReg` keeps its replica on the runtime's device.
 Both update their weight tensor in place.
 
-Not yet ported: ``load_libsvm_native`` (the native reader), stream URIs in
-:func:`load_libsvm` (they read through ``io/``) and ``models/lr_io.py``.
+Config files and streaming minibatch readers are in ``models/lr_io.py``;
+:func:`load_libsvm` reads any registered stream scheme.
+
+Not yet ported: ``load_libsvm_native`` (the native reader).
 """
 
 from __future__ import annotations
@@ -389,23 +391,22 @@ def parse_libsvm_line(line: str, max_nnz: int) -> Tuple[int, np.ndarray, np.ndar
 
 
 def load_libsvm(path: str, max_nnz: int = 64) -> Dict[str, np.ndarray]:
-    """Load a LibSVM-format local file (a plain path or ``file://``) into
-    padded sparse batch arrays. Other stream schemes fail loudly until
-    ``io/`` is ported."""
-    if path.startswith("file://"):
-        path = path[len("file://"):]
-    elif "://" in path:
-        log.fatal("load_libsvm: only local paths are ported (got %r)", path)
+    """Load a LibSVM-format file into padded sparse batch arrays. ``path``
+    is a URI: any registered Stream scheme works."""
+    from multiverso_tpu_torch.io import TextReader
     labels, idxs, vals = [], [], []
-    with open(path, encoding="utf-8") as fp:
-        for line in fp:
+    reader = TextReader(path)
+    try:
+        while (line := reader.get_line()) is not None:
             if not line.strip():
                 continue
             y, idx, val = parse_libsvm_line(line, max_nnz)
             labels.append(y)
             idxs.append(idx)
             vals.append(val)
-    if not labels:
+    finally:
+        reader.close()
+    if not labels:  # empty/all-blank file
         return {"y": np.zeros(0, np.int32),
                 "idx": np.full((0, max_nnz), -1, np.int32),
                 "val": np.zeros((0, max_nnz), np.float32)}

@@ -1,17 +1,16 @@
-"""Vocabulary and Huffman coding for word embedding training (port of
-``multiverso_tpu/models/vocab.py``; host numpy, the same code).
+"""Vocabulary, corpus reader and Huffman coding for word embedding training
+(port of ``multiverso_tpu/models/vocab.py``; host numpy, the same code).
 
 Reference capability (not copied): the WordEmbedding app's ``Dictionary``
-(word→id with min-count pruning) and ``HuffmanEncoder`` (binary tree over
-word counts for hierarchical softmax)
-(``Applications/WordEmbedding/src/{dictionary,huffman_encoder}.*``).
+(word→id with min-count pruning), ``Reader`` (token stream over text
+blocks) and ``HuffmanEncoder`` (binary tree over word counts for
+hierarchical softmax)
+(``Applications/WordEmbedding/src/{dictionary,reader,huffman_encoder}.*``).
 
-Huffman codes/points are padded to ``max_code_length`` with an explicit
-mask so the HS loss is one masked contraction instead of per-word
-variable-length loops.
-
-Not yet ported: ``Dictionary.from_text_file`` and ``iter_token_blocks``,
-which read text through ``io.TextReader`` (they arrive with ``io/``).
+The corpus is read through ``io.TextReader``, so any registered stream
+scheme serves it. Huffman codes/points are padded to ``max_code_length``
+with an explicit mask so the HS loss is one masked contraction instead of
+per-word variable-length loops.
 """
 
 from __future__ import annotations
@@ -19,11 +18,12 @@ from __future__ import annotations
 import heapq
 from collections import Counter
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Tuple
 
 import numpy as np
 
 from multiverso_tpu_torch import log
+from multiverso_tpu_torch.io import TextReader
 
 
 @dataclass
@@ -45,6 +45,18 @@ class Dictionary:
         d.word2id = {w: i for i, w in enumerate(d.words)}
         d.counts = np.array([c for _, c in kept], dtype=np.int64)
         return d
+
+    @classmethod
+    def from_text_file(cls, path: str, min_count: int = 5) -> "Dictionary":
+        def tokens() -> Iterator[str]:
+            reader = TextReader(path)
+            try:
+                while (line := reader.get_line()) is not None:
+                    yield from line.split()
+            finally:
+                reader.close()
+
+        return cls.build(tokens(), min_count)
 
     def __len__(self) -> int:
         return len(self.words)
@@ -118,3 +130,24 @@ class HuffmanEncoder:
         """(V, L) float mask of valid code positions."""
         idx = np.arange(self.max_code_length)[None, :]
         return (idx < self.code_lengths[:, None]).astype(np.float32)
+
+
+def iter_token_blocks(path: str, dictionary: Dictionary,
+                      block_tokens: int = 1 << 17) -> Iterator[np.ndarray]:
+    """Stream the corpus as blocks of encoded token ids (the reference's
+    block loader shape, minus the thread)."""
+    reader = TextReader(path)
+    buf: List[int] = []
+    try:
+        while (line := reader.get_line()) is not None:
+            for tok in line.split():
+                wid = dictionary.word2id.get(tok)
+                if wid is not None:
+                    buf.append(wid)
+            if len(buf) >= block_tokens:
+                yield np.array(buf[:block_tokens], dtype=np.int32)
+                buf = buf[block_tokens:]
+    finally:
+        reader.close()
+    if buf:
+        yield np.array(buf, dtype=np.int32)

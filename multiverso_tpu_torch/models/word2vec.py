@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 import multiverso_tpu_torch as mvt
+from multiverso_tpu_torch import io as mv_io
 from multiverso_tpu_torch import log
 from multiverso_tpu_torch.models.vocab import Dictionary, HuffmanEncoder
 from multiverso_tpu_torch.ops.rows import ROW_GROUP, gather_rows
@@ -493,28 +494,18 @@ def generate_cbow_batches(block: np.ndarray, window: int,
 
 # -- embeddings on disk ----------------------------------------------------------
 
-def _local_path(address: str) -> str:
-    """A plain path or a ``file://`` URI. Other schemes arrive with the
-    port of ``io/``."""
-    scheme, sep, rest = address.partition("://")
-    if not sep:
-        return address
-    if scheme == "file":
-        return rest or "/"
-    log.fatal("Can not support the protocol: %s", scheme)
-
-
 def save_embeddings(dictionary: Dictionary, embeddings: np.ndarray,
                     address: str, binary: bool = False) -> None:
     """Write embeddings in the word2vec interchange format the reference's
     ``SaveEmbedding`` produced (distributed_wordembedding.cpp:263-306):
     header ``"V D\\n"``, then per word either ``"word v1 … vD\\n"`` (text)
-    or ``"word " + D float32 + "\\n"`` (binary, word2vec.c-compatible)."""
+    or ``"word " + D float32 + "\\n"`` (binary, word2vec.c-compatible).
+    ``address`` is a URI — any registered Stream scheme works."""
     emb = np.asarray(embeddings, np.float32)
     v = len(dictionary.words)
     if emb.shape[0] < v:
         log.fatal("save_embeddings: %d words but %d rows", v, emb.shape[0])
-    with open(_local_path(address), "wb") as stream:
+    with mv_io.get_stream(address, "w") as stream:
         stream.write(f"{v} {emb.shape[1]}\n".encode())
         for i, word in enumerate(dictionary.words):
             stream.write(word.encode() + b" ")
@@ -528,7 +519,7 @@ def save_embeddings(dictionary: Dictionary, embeddings: np.ndarray,
 def load_embeddings(address: str, binary: bool = False
                     ) -> Tuple[list, np.ndarray]:
     """Inverse of :func:`save_embeddings`: returns (words, (V, D) matrix)."""
-    with open(_local_path(address), "rb") as stream:
+    with mv_io.get_stream(address, "r") as stream:
         data = stream.read()
     head, _, rest = data.partition(b"\n")
     v, dim = (int(x) for x in head.split())

@@ -7,9 +7,12 @@ dimension. Updates write into those tensors in place (where the JAX
 package donated its buffers), so every reply that hands out table state is
 a copy.
 
+Checkpoints (``store``/``load``) write the data and the updater states at
+the logical size, in the JAX package's format; ``load`` writes into the
+existing tensors.
+
 Not yet ported: the leaf-list model-sync forms (``sync_leaves_async``,
-``push_leaves_async``, ``get_leaves_async``), checkpoints and live
-migration.
+``push_leaves_async``, ``get_leaves_async``) and live migration.
 """
 
 from __future__ import annotations
@@ -142,6 +145,50 @@ class ArrayServer(ServerTable):
             if device_out:
                 return self._device_value()
         return self._host_read(self.updater.access(self.data)[: self.size])
+
+    # -- checkpoint --------------------------------------------------------
+    def store(self, stream) -> None:
+        from multiverso_tpu_torch.checkpoint import write_array, write_state_dict
+        write_array(stream, self._host_read(self.data[: self.size]))
+        write_state_dict(stream, {
+            name: self._host_read(arr[:, : self.size])
+            for name, arr in self.states.items()})
+
+    def load(self, stream) -> None:
+        from multiverso_tpu_torch.checkpoint import read_array, read_state_dict
+        arr = read_array(stream)
+        if arr.size != self.size:
+            log.fatal("ArrayTable.load: size mismatch %d != %d", arr.size, self.size)
+        # in place: functions that closed over the tensors see the restore
+        self.data.zero_()
+        self.data[: self.size].copy_(torch.from_numpy(
+            arr.reshape(-1).astype(self.dtype, copy=False)))
+        load_states(self.states, read_state_dict(stream), (self.size,))
+
+
+def load_states(states: Dict[str, torch.Tensor], loaded: Dict[str, np.ndarray],
+                logical: tuple) -> None:
+    """Write checkpointed updater states (logical dims after the worker
+    dimension) into the table's state tensors in place, padding zeroed. A
+    state missing from the file (a v1 checkpoint) or saved by a world with
+    another worker count is left as it is, as in the JAX package."""
+    for name, cur in states.items():
+        got = loaded.get(name)
+        if got is None:
+            continue  # v1 checkpoint: that state resets (pre-v2 behavior)
+        if got.shape[0] != cur.shape[0]:
+            # per-worker state from a world with a different worker
+            # count: elastic restarts keep working — reset like v1
+            log.info("checkpoint: %s worker dim %d != %d; resetting "
+                     "that updater state", name, got.shape[0], cur.shape[0])
+            continue
+        region = (slice(None),) + tuple(slice(0, n) for n in logical)
+        src = torch.from_numpy(np.ascontiguousarray(got))
+        if tuple(src.shape) != tuple(cur[region].shape):
+            log.fatal("checkpoint: state %s shape %s != %s", name,
+                      tuple(src.shape), tuple(cur[region].shape))
+        cur.zero_()
+        cur[region].copy_(src.to(cur.dtype))
 
 
 class ArrayWorker(WorkerTable):

@@ -203,3 +203,11 @@ class ServerTable:
 
     def process_get(self, request: Any) -> Any:
         raise NotImplementedError
+
+    # Serializable (checkpoint) hooks: run on the dispatcher thread
+    # (checkpoint._run_serialized)
+    def store(self, stream) -> None:
+        raise NotImplementedError
+
+    def load(self, stream) -> None:
+        raise NotImplementedError

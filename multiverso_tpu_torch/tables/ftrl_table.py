@@ -10,7 +10,8 @@ FTRL closed form). Add ships raw gradients and updates ``z`` and ``n`` in
 place with torch ops (the JAX package ran a jitted update on donated
 buffers).
 
-Not yet ported: checkpoints (``store``/``load``, with ``checkpoint.py``).
+Checkpoints store ``z`` and then ``n`` at the logical size, as the JAX
+package does; ``load`` writes into the existing tensors.
 """
 
 from __future__ import annotations
@@ -70,6 +71,23 @@ class FTRLServer(ServerTable):
 
     def process_get(self, request: Any) -> np.ndarray:
         return self._host_read(self._weights()[: self.size])
+
+    def store(self, stream) -> None:
+        from multiverso_tpu_torch.checkpoint import write_array
+        write_array(stream, self._host_read(self.z[: self.size]))
+        write_array(stream, self._host_read(self.n[: self.size]))
+
+    def load(self, stream) -> None:
+        from multiverso_tpu_torch.checkpoint import read_array
+        z = read_array(stream)
+        n = read_array(stream)
+        if z.size != self.size or n.size != self.size:
+            log.fatal("FTRLTable.load: z/n sizes %d/%d != %d", z.size,
+                      n.size, self.size)
+        for dst, src in ((self.z, z), (self.n, n)):
+            dst.zero_()
+            dst[: self.size].copy_(torch.from_numpy(
+                src.reshape(-1).astype(np.float32)))
 
 
 class FTRLWorker(WorkerTable):

@@ -17,7 +17,14 @@ staleness tracking (port of ``multiverso_tpu/tables/matrix_table.py``).
 Tables are updated in place (the JAX package donated its buffers), so any
 reply that hands out table state is a copy.
 
-Not yet ported: checkpoints, live migration and the wire proxies.
+Checkpoints (``store``/``load``) hold the logical ``num_row x num_col``
+data and updater states only: neither the column padding nor the sentinel
+row is checkpoint content, and ``load`` zeroes both again (the zero-delta
+pads of every scatter aim at the sentinel row). ``load`` writes into the
+existing tensors, so a registered program or a trainer's transaction that
+closed over them sees the restored values.
+
+Not yet ported: live migration and the wire proxies.
 """
 
 from __future__ import annotations
@@ -34,7 +41,9 @@ from multiverso_tpu_torch.ops.rows import ROW_GROUP, gather_rows, scatter_add_ro
 from multiverso_tpu_torch.parallel import mesh as mesh_lib
 from multiverso_tpu_torch.runtime.programs import resolve_program
 from multiverso_tpu_torch.runtime.zoo import Zoo
-from multiverso_tpu_torch.tables.array_table import _make_states, _make_whole_update
+from multiverso_tpu_torch.tables.array_table import (_make_states,
+                                                     _make_whole_update,
+                                                     load_states)
 from multiverso_tpu_torch.tables.base import ServerTable, WorkerTable
 from multiverso_tpu_torch.updaters import (AddOption, GetOption, SGDUpdater,
                                            Updater, get_updater)
@@ -399,6 +408,34 @@ class MatrixServer(ServerTable):
         ids_p, _, n = self._bucket_ids(stale, None)
         rows = self._host_read(gather_rows(self.data, ids_p)[:n, : self.num_col])
         return stale, rows
+
+    # -- checkpoint --------------------------------------------------------
+    def store(self, stream) -> None:
+        from multiverso_tpu_torch.checkpoint import write_array, write_state_dict
+        logical = (slice(0, self.num_row), slice(0, self.num_col))
+        write_array(stream, self._host_read(self.data[logical]))
+        write_state_dict(stream, {
+            name: self._host_read(arr[(slice(None),) + logical])
+            for name, arr in self.states.items()})
+
+    def load(self, stream) -> None:
+        from multiverso_tpu_torch.checkpoint import read_array, read_state_dict
+        arr = read_array(stream)
+        if arr.size != self.num_row * self.num_col:
+            log.fatal("Matrix.load: %d values for a %d x %d table", arr.size,
+                      self.num_row, self.num_col)
+        self.data.zero_()  # the column pads and the sentinel row
+        logical = arr.reshape(self.num_row, self.num_col)
+        self.data[: self.num_row, : self.num_col].copy_(
+            torch.from_numpy(logical.astype(self.dtype, copy=False)))
+        load_states(self.states, read_state_dict(stream),
+                    (self.num_row, self.num_col))
+        if self.is_sparse:
+            # staleness is NOT restorable state: it certifies worker-side
+            # client caches the snapshot does not cover — a restored
+            # table must serve every row fresh once
+            with self._std_lock:
+                self._up_to_date[:, :] = False
 
 
 class MatrixWorker(WorkerTable):

@@ -16,13 +16,17 @@ as in the JAX package, so this module is host numpy there and here:
 accumulators ``(z, n)``; Add ships raw gradients, Get derives the
 FTRL-proximal weights.
 
-Not yet ported: checkpoints (``store``/``load``, with ``checkpoint.py``),
-the wire proxies (``remote_spec``) and the tiered server
+Checkpoints (``store``/``load``) write the live keys sorted, then their
+rows (``SparseFTRLServer``: each key's ``z`` then ``n`` row), byte for byte
+as the JAX package does.
+
+Not yet ported: the wire proxies (``remote_spec``) and the tiered server
 (``TieredSparseServer``, with ``store/``).
 """
 
 from __future__ import annotations
 
+import struct
 from typing import Any, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
@@ -88,6 +92,22 @@ class SparseServer(ServerTable):
                 out[i] = row
         return out
 
+    # -- checkpoint ---------------------------------------------------------
+    def store(self, stream) -> None:
+        live, vals = self.process_get((None, None))
+        stream.write(struct.pack("<qq", len(live), self.width))
+        stream.write(live.astype(np.int64).tobytes())
+        stream.write(vals.astype(self.dtype).tobytes())
+
+    def load(self, stream) -> None:
+        count, width = struct.unpack("<qq", stream.read(16))
+        if width != self.width:
+            log.fatal("sparse.load: width %d != %d", width, self.width)
+        keys = np.frombuffer(stream.read(8 * count), dtype=np.int64)
+        vals = np.frombuffer(stream.read(self.dtype.itemsize * count * width),
+                             dtype=self.dtype).reshape(count, width)
+        self._store = {int(k): v.copy() for k, v in zip(keys, vals)}
+
 
 class SparseFTRLServer(ServerTable):
     """Struct-valued sparse server: per-key FTRL accumulators ``(z, n)``;
@@ -145,6 +165,25 @@ class SparseFTRLServer(ServerTable):
             if z is not None:
                 out[i] = self._weights(z, self._n[k])
         return out
+
+    def store(self, stream) -> None:
+        live = np.array(sorted(self._z.keys()), dtype=np.int64)
+        stream.write(struct.pack("<qq", len(live), self.width))
+        stream.write(live.tobytes())
+        for k in live.tolist():
+            stream.write(self._z[k].tobytes())
+            stream.write(self._n[k].tobytes())
+
+    def load(self, stream) -> None:
+        count, width = struct.unpack("<qq", stream.read(16))
+        if width != self.width:
+            log.fatal("sparse_ftrl.load: width %d != %d", width, self.width)
+        keys = np.frombuffer(stream.read(8 * count), dtype=np.int64)
+        self._z, self._n = {}, {}
+        row = 4 * width
+        for k in keys.tolist():
+            self._z[k] = np.frombuffer(stream.read(row), np.float32).copy()
+            self._n[k] = np.frombuffer(stream.read(row), np.float32).copy()
 
 
 class SparseWorker(WorkerTable):

@@ -37,7 +37,9 @@ def test_import_pulls_in_no_jax():
     assert {"multiverso_tpu_torch.models.word2vec", "multiverso_tpu_torch.convert",
             "multiverso_tpu_torch.tables.kv_table", "multiverso_tpu_torch.models.logreg",
             "multiverso_tpu_torch.tables.sparse_table",
-            "multiverso_tpu_torch.tables.ftrl_table"} <= set(loaded)
+            "multiverso_tpu_torch.tables.ftrl_table", "multiverso_tpu_torch.io",
+            "multiverso_tpu_torch.checkpoint",
+            "multiverso_tpu_torch.models.lr_io"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -374,24 +374,34 @@ def test_ssp_staleness_gauge_and_gate_wait():
     SSP_STALENESS_W<i>."""
     mvt.init(device="cpu", ssp_staleness=0, local_workers=2)
     table = mvt.create_table("array", 4, np.float32)
-    pending = _server(mvt)._pending_get  # its lists are replaced on drain
-    parked = threading.Event()
+    server = _server(mvt)
+    parked = threading.Event()  # the server has parked worker 0's Get
+    added = threading.Event()   # both of worker 1's Adds are applied
+    gate_defer = server._gate_defer
+
+    def defer(msg):
+        gate_defer(msg)
+        parked.set()
+
+    server._gate_defer = defer
 
     def run(slot):
         with mvt.worker(slot):
             if slot == 0:
                 table.add(np.ones(4, np.float32))
-                parked.set()
-                table.get()  # waits for worker 1's first Add
+                table.get()  # parked until worker 1's first Add
+                # a finished worker leaves the slowest-worker minimum, so
+                # worker 0 finishes only after worker 1's second Add has
+                # set its gauge against worker 0's clock
+                if not added.wait(JOIN_S):
+                    raise AssertionError("worker 1's Adds never landed")
             else:
-                parked.wait(30)
-                deadline = time.monotonic() + 30
-                while (not pending[table.table_id]
-                       and time.monotonic() < deadline):
-                    time.sleep(0.005)  # until worker 0's Get is parked
+                if not parked.wait(JOIN_S):
+                    raise AssertionError("worker 0's Get was never parked")
                 time.sleep(0.1)
                 table.add(np.ones(4, np.float32))
                 table.add(np.ones(4, np.float32))
+                added.set()
             table.finish_train()
 
     _run_workers(2, run)
