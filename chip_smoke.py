@@ -68,8 +68,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 8. word2vec's staged path (``get_device_async`` -> step ->
    ``add_device_async``) at the bench recipe's width: ``-sync`` with one
    worker (card against CPU, then timed), ``-ssp_staleness=2`` with two
-   workers on disjoint blocks, ``-deterministic`` twice (the drift the
-   step's ``index_add_`` atomics leave between two runs).
+   workers on disjoint blocks, ``-deterministic`` twice: the two runs'
+   tables must be bitwise equal (under the flag the step sums duplicate
+   rows in index order, without atomics).
 9. Logistic regression on synthetic data: the CTR shape (39 active hashed
    features of 2^24, minibatch 256) through the sparse table (sgd) and
    the sparse FTRL table, and MNIST's 784 features through the array
@@ -94,7 +95,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tables restored bitwise (examples/s). The scatter and gather must
    launch over the resumed PS rounds and the resumed word2vec
    submissions.
-11. The run's seconds, one JSON line listing every kernel, then the last line
+11. The device hash KV table at the lightLDA shape: 64 Adds of 65,536
+   word-topic keys (``word * 1000 + topic``, words from the bench's zipf
+   counts, topics uniform; value 1.0) into ``create_table("kv",
+   capacity=...)`` sized for them and into one that starts at 2^16 and
+   rebuilds; whole-table Get, 100,000 point Gets and a store/load round
+   trip equal to a numpy mirror exactly; Add and Get keys/s, rebuilds,
+   capacity and bytes, the operators and kernels of one ``hash_add``.
+12. The query plane through ``mvt.query``/``table.query``: a 1M x 50
+   matrix (16 vectors, k = 16, dot and cosine, behind queued Adds), a
+   word2vec ``w_in`` (100,001 x 128, 10 nearest by cosine), an integer
+   grid with exact ties across the k boundary, a sparse table of 200,000
+   rows of width 8, and a tiered sparse table of 600,000 keys x 8 at 10x
+   its hot budget (8-bit cold segments, no promotion), each against a
+   numpy oracle (ids exact, ties included; scores rtol 1e-5, atol 1e-6);
+   queries/s and p50/p99 ms a call.
+13. The run's seconds, one JSON line listing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
@@ -166,6 +182,13 @@ JOIN_S = 600
 RESUME_ROUNDS = 64
 W2V_FILE_TOKENS = 4_000_000
 W2V_LINE_TOKENS = 1000
+# the device KV table: lightLDA word-topic counts (tests/test_kv_table.py's
+# stress at a user's size): Adds of zipf-word x uniform-topic keys
+KV_ADDS, KV_DRAWS, KV_TOPICS = 64, 65_536, 1000
+KV_POINT_GETS = 100_000
+# the query plane against its numpy oracle: float32 scores from another
+# summation order (cuBLAS against numpy's BLAS), a normalisation for cosine
+QUERY_RTOL, QUERY_ATOL = 1e-5, 1e-6
 
 
 def run(cmd):
@@ -1323,14 +1346,18 @@ def staged_word2vec_phase(mvt, rows, device: str, card: str, w2v=None,
         "bsp_1worker_words_per_s": bsp[3], "bsp_losses": bsp[2],
         "ssp2_2workers_words_per_s": ssp[3],
         "deterministic_words_per_s": [r[3] for r in det],
-        # the step's index_add_ sums duplicate rows with atomics: what that
-        # order alone leaves between two -deterministic runs
+        # the step sums duplicate rows in index order under the flag
+        # (index_put_ with accumulate); the two runs must be bitwise equal
         "deterministic_drift_max_abs": max(
             float(np.abs(a - b).max()) for a, b in zip(det[0][:2], det[1][:2])),
         "deterministic_bitwise_equal": all(
             np.array_equal(a, b) for a, b in zip(det[0][:2], det[1][:2])),
         "tokens_per_worker": blocks_per_worker * T,
     })
+    if not metrics["deterministic_bitwise_equal"]:
+        raise AssertionError(
+            f"staged word2vec under -deterministic: two runs differ (max "
+            f"|diff| {metrics['deterministic_drift_max_abs']})")
     return metrics, launches
 
 
@@ -1878,6 +1905,376 @@ def logreg_file_phase(mvt, rows, device: str, card: str, ckpt_dir: str,
     return metrics, launches
 
 
+# -- the device hash KV table --------------------------------------------------
+
+def lda_keys(rng, adds: int, draws: int, vocab: int, topics: int) -> np.ndarray:
+    """``(adds, draws)`` lightLDA word-topic keys ``word * topics + topic``:
+    words from the bench's zipf counts, topics uniform."""
+    words = zipf_tokens(rng, (adds, draws), vocab).astype(np.int64)
+    return words * topics + rng.integers(0, topics, (adds, draws))
+
+
+def count_ops(fn) -> int:
+    """torch operators ``fn`` dispatches (each is a kernel launch on the
+    card, bar the few that only touch metadata)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.ops
+
+
+def cuda_kernels(fn):
+    """CUDA kernels ``fn`` launches, from torch.profiler; "not measured"
+    without a card or when the profiler sees no device activity."""
+    if not torch.cuda.is_available():
+        return "not measured"
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not e.key.startswith("Memcpy"))
+    return n if n > 0 else "not measured"
+
+
+def kv_arrays(pairs: dict):
+    """A whole-table Get's dict as (keys, values) arrays sorted by key."""
+    k = np.fromiter(pairs.keys(), np.int64, len(pairs))
+    v = np.fromiter(pairs.values(), np.float64, len(pairs))
+    order = np.argsort(k)
+    return k[order], v[order]
+
+
+def device_kv_phase(mvt, device: str, card: str, adds: int = KV_ADDS,
+                    draws: int = KV_DRAWS, vocab: int = 100_000,
+                    topics: int = KV_TOPICS, point_gets: int = KV_POINT_GETS,
+                    grown_capacity: int = 1 << 16):
+    """The device hash KV table at the lightLDA shape of
+    ``tests/test_kv_table.py``'s stress, at a user's size: ``adds`` Adds of
+    ``draws`` word-topic keys (value 1.0) into a table sized for them
+    (capacity twice the distinct keys) and into one that starts at
+    ``grown_capacity`` and rebuilds as it fills. The whole-table Get, ``point_gets`` point
+    Gets and a store/load round trip equal a numpy mirror exactly (the
+    counts stay below 2^24, exact in float32)."""
+    import io
+    from multiverso_tpu_torch.ops import device_hash
+    rng = np.random.default_rng(21)
+    keys = lda_keys(rng, adds, draws, vocab, topics)
+    uniq, inverse = np.unique(keys, return_inverse=True)
+    mirror = np.bincount(inverse.ravel(), minlength=len(uniq)).astype(np.float64)
+    if keys.max() >= 1 << 31 or mirror.max() >= 1 << 24:
+        raise AssertionError("device KV phase: keys or counts out of range")
+    probe = np.concatenate([rng.choice(uniq, point_gets // 2),
+                            rng.integers(0, vocab * topics,
+                                         point_gets - point_gets // 2)])
+    at = np.minimum(np.searchsorted(uniq, probe), len(uniq) - 1)
+    want_probe = np.where(uniq[at] == probe, mirror[at], 0.0)
+    metrics = {"adds": adds, "draws_per_add": draws,
+               "distinct_keys": int(len(uniq)), "max_count": int(mirror.max())}
+    mvt.init(device=device)
+    try:
+        ones = np.ones(draws, np.float32)
+        for label, capacity in (("sized", 2 * len(uniq)),
+                                ("grown", grown_capacity)):
+            table = mvt.create_table("kv", np.float32, capacity=capacity)
+            server = table._server_table
+            t0 = time.perf_counter()
+            for i in range(adds):
+                table.add(keys[i], ones)     # returns after its host read
+            add_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pairs = table.get()
+            whole_s = time.perf_counter() - t0
+            gk, gv = kv_arrays(pairs)
+            if not (np.array_equal(gk, uniq) and np.array_equal(gv, mirror)):
+                raise AssertionError(f"device KV ({label}): the whole-table "
+                                     f"Get differs from the mirror")
+            del pairs
+            t0 = time.perf_counter()
+            got = np.asarray(table.get(probe), np.float64)
+            get_s = time.perf_counter() - t0
+            if not np.array_equal(got, want_probe):
+                raise AssertionError(f"device KV ({label}): point Gets differ "
+                                     f"from the mirror")
+            if server._live != len(uniq):
+                raise AssertionError(f"device KV ({label}): live count "
+                                     f"{server._live} != {len(uniq)}")
+            metrics[label] = {
+                "initial_capacity": capacity, "add_keys_per_s": adds * draws / add_s,
+                "add_ms_per_call": add_s / adds * 1e3,
+                "point_get_keys_per_s": point_gets / get_s,
+                "whole_get_s": whole_s, "whole_get_pairs_per_s": len(uniq) / whole_s,
+                "rebuilds": server.rebuilds, "final_capacity": server.capacity,
+                "device_bytes": server.device_bytes}
+        if metrics["grown"]["rebuilds"] < 2:
+            raise AssertionError("device KV: the growing table rebuilt "
+                                 "fewer than twice")
+        # store/load round trip of the grown table, on the dispatcher
+        buf = io.BytesIO()
+        t0 = time.perf_counter()
+        mvt.Zoo.instance().server.run_serialized(lambda: server.store(buf))
+        store_s = time.perf_counter() - t0
+        fresh = mvt.create_table("kv", np.float32, capacity=grown_capacity)
+        t0 = time.perf_counter()
+        mvt.Zoo.instance().server.run_serialized(
+            lambda: fresh._server_table.load(io.BytesIO(buf.getvalue())))
+        load_s = time.perf_counter() - t0
+        gk, gv = kv_arrays(fresh.get())
+        if not (np.array_equal(gk, uniq) and np.array_equal(gv, mirror)):
+            raise AssertionError("device KV: store/load changed the map")
+        metrics["store_load"] = {"bytes": len(buf.getvalue()), "store_s": store_s,
+                                 "load_s": load_s,
+                                 "load_rebuilds": fresh._server_table.rebuilds}
+        del buf, fresh
+        # what one hash_add costs at the phase's batch: unique keys of one
+        # Add into a table at load 0.25
+        cap = 1 << 20
+        hk = torch.full((cap + 1,), device_hash.EMPTY, dtype=torch.int32,
+                        device=server.device)
+        hv = torch.zeros(cap + 1, device=server.device)
+        bk = torch.from_numpy(np.unique(keys[0]).astype(np.int32)).to(server.device)
+        bv = torch.ones(len(bk), device=server.device)
+        call = lambda: device_hash.hash_add(hk, hv, bk, bv, cap)  # noqa: E731
+        metrics["hash_add"] = {"batch": int(len(bk)),
+                               "torch_ops": count_ops(call),
+                               "cuda_kernels": cuda_kernels(call)}
+    finally:
+        stop_runtime(mvt)
+    print(f"device KV on {card}: {adds} Adds of {draws} word-topic keys, "
+          f"{len(uniq)} distinct; maps, point Gets and store/load equal the "
+          f"mirror exactly", flush=True)
+    return metrics
+
+
+# -- the top-k query plane -----------------------------------------------------
+
+def topk_oracle(ids: np.ndarray, rows: np.ndarray, vecs: np.ndarray, k: int,
+                metric: str):
+    """numpy top-k under the ordering contract (score desc, id asc), one
+    past k where the table has it: every row scoring at least the
+    (k+1)-th score is a candidate, so ties at the boundary are all in."""
+    rows = rows.astype(np.float32, copy=False)
+    vecs = vecs.astype(np.float32)
+    if metric == "cosine":
+        eps = np.float32(1e-30)
+        vecs = vecs / np.maximum(np.linalg.norm(vecs, axis=1, keepdims=True), eps)
+        rows = rows / np.maximum(np.linalg.norm(rows, axis=1, keepdims=True), eps)
+    scores = vecs @ rows.T
+    kk = min(k + 1, scores.shape[1])
+    cut = -np.partition(-scores, kk - 1, axis=1)[:, kk - 1:kk]
+    out_ids, out_scores = [], []
+    for r in range(len(scores)):
+        cand = np.nonzero(scores[r] >= cut[r])[0]
+        order = np.lexsort((ids[cand], -scores[r, cand]))[:kk]
+        out_ids.append(ids[cand][order])
+        out_scores.append(scores[r, cand][order])
+    return np.stack(out_ids), np.stack(out_scores).astype(np.float32)
+
+
+def check_topk(got, want, k: int, exact: bool, what: str) -> None:
+    """Hold a query's answer to the oracle's (one column past k): exact
+    ids and scores where ``exact``; else scores within QUERY_RTOL /
+    QUERY_ATOL and the ids exact except inside runs of oracle scores
+    closer than that (such a run may swap members across the k
+    boundary)."""
+    ids, scores = got
+    want_ids, want_scores = want
+    kk = min(k, want_ids.shape[1])
+    if ids.shape != (len(want_ids), kk):
+        raise AssertionError(f"{what}: shape {ids.shape}, want {(len(want_ids), kk)}")
+    if exact:
+        if not (np.array_equal(ids, want_ids[:, :kk])
+                and np.array_equal(scores, want_scores[:, :kk])):
+            raise AssertionError(f"{what}: ids or scores differ from the oracle")
+        return
+    np.testing.assert_allclose(scores, want_scores[:, :kk], rtol=QUERY_RTOL,
+                               atol=QUERY_ATOL, err_msg=what)
+    for r in range(len(ids)):
+        s = want_scores[r]
+        close = np.abs(np.diff(s)) <= QUERY_ATOL + QUERY_RTOL * np.abs(s[1:])
+        start = 0
+        for j in range(kk):
+            if j and not close[j - 1]:
+                start = j
+            end = j
+            while end + 1 < len(s) and close[end]:
+                end += 1
+            ok = (ids[r, j] == want_ids[r, j] if start == end
+                  else ids[r, j] in set(want_ids[r, start:end + 1].tolist()))
+            if not ok:
+                raise AssertionError(f"{what}: row {r} position {j} id "
+                                     f"{ids[r, j]} is not the oracle's")
+        if len(set(ids[r].tolist())) != kk:
+            raise AssertionError(f"{what}: row {r} repeats an id")
+
+
+def timed_queries(table, vecs_of, k: int, metric: str, calls: int):
+    """``calls`` queries through ``table.query`` (the dispatcher), each
+    with fresh vectors: (last answer, its vectors, call seconds)."""
+    lat = []
+    for i in range(calls):
+        vecs = vecs_of(i)
+        t0 = time.perf_counter()
+        got = table.query(vecs, k, metric=metric)
+        lat.append(time.perf_counter() - t0)
+    return got, vecs, lat
+
+
+def rate(lat, n_q: int) -> dict:
+    return {"calls": len(lat), "queries_per_s": n_q * len(lat) / sum(lat),
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3}
+
+
+def query_phase(mvt, rows, device: str, card: str, scratch: str,
+                num_row: int = ROWS, num_col: int = COLS,
+                w2v_rows: int = W2V["vocab_size"] + 1,
+                grid_rows: int = 200_000, sparse_rows: int = 200_000,
+                tiered_keys: int = 600_000, calls: int = 20):
+    """``table.query`` / ``mvt.query`` through the dispatcher on (a) a
+    1M x 50 matrix (16 query vectors, k = 16, bench.py:1466) under dot
+    and cosine, right behind a burst of row Adds it must see; (b) a
+    word2vec ``w_in`` (100,001 x 128) for each probe word's 10 nearest by
+    cosine; (c) an integer grid with exact ties across the k boundary;
+    (d) a sparse table of 200,000 live rows of width 8; (e) one pass over
+    a tiered sparse table of 600,000 keys x 8 at 10x its hot budget,
+    8-bit cold segments, with no promotion. Each answer is held to the
+    numpy oracle; TF32 is switched on around the queries to show the
+    engine scores in full float32."""
+    from multiverso_tpu_torch.dashboard import Dashboard
+    rng = np.random.default_rng(31)
+    n_q, k = 16, 16
+    metrics = {}
+    for kern in (rows.gather_rows, rows.scatter_add_rows):
+        kern.launches = 0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    mvt.init(device=device)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        # (a) the PS shape, queried behind 8 queued 1024-row Adds
+        table = mvt.create_table("matrix", num_row, num_col, np.float32,
+                                 init_range=(-1.0, 1.0), seed=7)
+        data = table.get()
+        handles = []
+        for _ in range(8):
+            ids = rng.choice(num_row, BATCH, replace=False).astype(np.int32)
+            vals = rng.standard_normal((BATCH, num_col), dtype=np.float32)
+            data[ids] += vals
+            handles.append(table.add_async(vals, row_ids=ids))
+        vecs = rng.standard_normal((n_q, num_col), dtype=np.float32)
+        ids_all = np.arange(num_row)
+        for metric in ("dot", "cosine"):
+            got = mvt.query(table, vecs, k, metric)
+            check_topk(got, topk_oracle(ids_all, data, vecs, k, metric), k,
+                       False, f"matrix {metric}")
+        for h in handles:
+            table.wait(h)
+        for metric in ("dot", "cosine"):
+            got, v, lat = timed_queries(
+                table, lambda i: rng.standard_normal((n_q, num_col),
+                                                     dtype=np.float32),
+                k, metric, calls)
+            check_topk(got, topk_oracle(ids_all, data, v, k, metric), k, False,
+                       f"matrix {metric} (timed)")
+            metrics[f"matrix_{metric}"] = rate(lat, n_q)
+        del data
+
+        # (b) nearest words in a w_in-shaped table (PSTrainer's init)
+        dim = W2V["dim"]
+        w_in = mvt.create_table("matrix", w2v_rows, dim, np.float32,
+                                init_range=(-0.5 / dim, 0.5 / dim), seed=3)
+        emb = w_in.get()
+        ids_all = np.arange(w2v_rows)
+        words = lambda i: rng.choice(w2v_rows, n_q, replace=False)  # noqa: E731
+        probe = {}
+        got, v, lat = timed_queries(
+            w_in, lambda i: emb[probe.setdefault(i, words(i))], 10, "cosine",
+            calls)
+        check_topk(got, topk_oracle(ids_all, emb, v, 10, "cosine"), 10, False,
+                   "w_in nearest words")
+        if not np.array_equal(got[0][:, 0], probe[calls - 1]):
+            raise AssertionError("w_in: a word is not its own nearest word")
+        metrics["w_in_cosine_k10"] = rate(lat, n_q)
+        del emb
+
+        # (c) exact ties: 40 distinct integer rows, each repeated thousands
+        # of times; every dot product is exact in float32
+        base = rng.integers(-4, 5, (40, 16)).astype(np.float32)
+        grid = base[rng.integers(0, 40, grid_rows)]
+        gt = mvt.create_table("matrix", grid_rows, 16, np.float32,
+                              init_value=grid)
+        ids_all = np.arange(grid_rows)
+        got, v, lat = timed_queries(
+            gt, lambda i: rng.integers(-3, 4, (n_q, 16)).astype(np.float32),
+            k, "dot", calls)
+        check_topk(got, topk_oracle(ids_all, grid, v, k, "dot"), k, True,
+                   "integer grid (ties)")
+        metrics["grid_dot_ties"] = rate(lat, n_q)
+
+        # (d) a sparse table, 200,000 live rows of width 8
+        st = mvt.create_table("sparse", 1 << 30, width=8)
+        skeys = np.sort(rng.choice(1 << 30, sparse_rows, replace=False))
+        svals = rng.standard_normal((sparse_rows, 8), dtype=np.float32)
+        for s in range(0, sparse_rows, 50_000):
+            st.add(skeys[s:s + 50_000], svals[s:s + 50_000])
+        for metric in ("dot", "cosine"):
+            got, v, lat = timed_queries(
+                st, lambda i: rng.standard_normal((n_q, 8), dtype=np.float32),
+                k, metric, max(3, calls // 4))
+            check_topk(got, topk_oracle(skeys, svals, v, k, metric), k, False,
+                       f"sparse {metric}")
+            metrics[f"sparse_{metric}"] = rate(lat, n_q)
+
+        # (e) a tiered sparse table 10x over its hot budget, 8-bit cold
+        width = 8
+        tt = mvt.create_table("tiered_sparse", tiered_keys, width,
+                              resident_bytes=tiered_keys * width * 4 // 10,
+                              cold_bits=8, tier_dir=os.path.join(scratch, "tier"))
+        t0 = time.perf_counter()
+        for s in range(0, tiered_keys, 50_000):
+            keys = np.arange(s, min(s + 50_000, tiered_keys), dtype=np.int64)
+            tt.add(keys, rng.standard_normal((len(keys), width), dtype=np.float32))
+        fill_s = time.perf_counter() - t0
+        stats = tt._server_table.tier_stats()
+        tkeys, trows = tt.get()          # decoded hot + cold rows, no churn
+        counters = ("TIER_PROMOTIONS", "TIER_HOT_HITS", "TIER_COLD_HITS")
+        before = [Dashboard.counter_value(c) for c in counters]
+        seg0 = Dashboard.counter_value("QUERY_COMPRESSED_SEGMENTS")
+        got, v, lat = timed_queries(
+            tt, lambda i: rng.standard_normal((n_q, width), dtype=np.float32),
+            k, "dot", 3)
+        check_topk(got, topk_oracle(tkeys, trows, v, k, "dot"), k, False,
+                   "tiered sparse (compressed domain)")
+        after = [Dashboard.counter_value(c) for c in counters]
+        if after != before or tt._server_table.tier_stats() != stats:
+            raise AssertionError(f"tiered query moved the tier: {before} -> "
+                                 f"{after}")
+        metrics["tiered_dot"] = dict(
+            rate(lat, n_q), fill_s=fill_s, **stats,
+            compressed_segments=Dashboard.counter_value(
+                "QUERY_COMPRESSED_SEGMENTS") - seg0)
+        tt._server_table._tier.close()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        stop_runtime(mvt)
+    launches = {k.__name__: k.launches for k in (rows.gather_rows,
+                                                 rows.scatter_add_rows)}
+    print(f"query plane on {card}: matrix, w_in, integer-grid ties, sparse "
+          f"and tiered answers equal the oracle (ids exact, scores rtol "
+          f"{QUERY_RTOL} atol {QUERY_ATOL}; the ties exact); the tiered scan "
+          f"promoted nothing", flush=True)
+    return metrics, launches
+
+
 KERNELS = {
     "scatter_add_rows":"multiverso_tpu/ops/pallas_rows.py:172",
     "gather_rows": "multiverso_tpu/ops/pallas_rows.py:107",
@@ -2029,7 +2426,17 @@ def smoke(args, scratch: str) -> int:
             if n <= 0:
                 raise AssertionError(f"{k}: no launch on {what}")
 
-    # 11. the kernel line, then the verdict
+    # 11. the device hash KV table
+    kv = device_kv_phase(mvt, "cuda", card)
+    print(f"device KV on {card}: {json.dumps(kv)}", flush=True)
+
+    # 12. the query plane
+    query, query_launches = query_phase(mvt, rows, "cuda", card, scratch)
+    print(f"query plane on {card}: {json.dumps(query)}; row-kernel launches "
+          f"over the phase (its table fills): {json.dumps(query_launches)}",
+          flush=True)
+
+    # 13. the kernel line, then the verdict
     table = []
     for k, where in KERNELS.items():
         r = results[k]

@@ -13,8 +13,14 @@ Public surface (MV_* parity, the part ported so far):
     rank / size / num_workers / num_servers / worker_id / server_id
     worker_id_to_rank / server_id_to_rank / is_master_worker
     set_flag / get_flag / parse_cmd_flags
-    create_table("array" | "matrix" | "kv") / register_table_type
+    create_table("array" | "matrix" | "kv" | "sparse" | "tiered_sparse"
+                 | "tiered_kv") / register_table_type
     worker(slot)                   (bind a logical worker context to a thread)
+    query                          (server-side top-k retrieval pushdown)
+
+``create_table("kv", dtype, capacity=N)`` puts the KV table's keys and
+values on the device (``DeviceKVServer``); the tiered kinds keep a hot set
+of rows in host memory and spill the rest to disk (``store/``).
 
 Checkpoints live in :mod:`multiverso_tpu_torch.checkpoint` (``store_table``,
 ``load_table``, ``restore_tables``, ``CheckpointDriver``), as in the JAX
@@ -130,11 +136,30 @@ def worker(local_slot: int) -> Iterator[int]:
         zoo.bind_worker(0)
 
 
+# Bind the retrieval subpackage NOW so the front door below wins the
+# `query` name on this module: once multiverso_tpu_torch.query sits in
+# sys.modules, later imports of it (or its engine) never re-assign the
+# parent attribute over the function.
+from multiverso_tpu_torch import query as _query_plane  # noqa: E402,F401
+
+
+def query(table: Any, vecs: Any, k: int, metric: str = "dot"):
+    """Server-side top-k retrieval pushdown over ``table`` (``query/``):
+    score every row against the query matrix ``vecs`` ((n_q, dim)
+    float32) under ``metric`` (``dot`` | ``cosine``) and return
+    ``(ids, scores)``, each (n_q, k') with k' = min(k, rows), ranked
+    score-descending, ties toward the lower id."""
+    return table.query(vecs, k, metric=metric)
+
+
 # -- tables -----------------------------------------------------------------
 
 from multiverso_tpu_torch.tables.array_table import ArrayServer, ArrayWorker  # noqa: E402,F401
-from multiverso_tpu_torch.tables.kv_table import KVServer, KVWorker  # noqa: E402,F401
+from multiverso_tpu_torch.tables.kv_table import (  # noqa: E402,F401
+    DeviceKVServer, KVServer, KVWorker, TieredKVServer, make_tiered_kv)
 from multiverso_tpu_torch.tables.matrix_table import MatrixServer, MatrixWorker  # noqa: E402,F401
+from multiverso_tpu_torch.tables.sparse_table import (  # noqa: E402,F401
+    SparseWorker, TieredSparseServer, make_tiered_sparse)
 from multiverso_tpu_torch.updaters import AddOption, GetOption  # noqa: E402,F401
 
 ArrayTableHandler = ArrayWorker  # python-binding names
@@ -144,6 +169,10 @@ _TABLE_TYPES = {
     "array": ArrayWorker,
     "matrix": MatrixWorker,
     "kv": KVWorker,
+    "sparse": SparseWorker,
+    # beyond-RAM variants (store/)
+    "tiered_sparse": make_tiered_sparse,
+    "tiered_kv": make_tiered_kv,
 }
 
 

@@ -224,3 +224,32 @@ define_int("apply_batch_rows", 16384,
            "prefix of the drained group up to this many rows and the rest "
            "fuse in the next call — bounds the power-of-two id bucket (and "
            "its zero-padded upload). 0 = unbounded")
+
+# Tiered beyond-RAM storage (store/): hot/cold row tiers for the sparse and
+# KV table kinds, as in the JAX package.
+define_int("tier_resident_bytes", 64 << 20,
+           "hot-tier byte budget per tiered table: row payload bytes kept "
+           "RAM-resident; the LRU tail past it is demoted to quantized "
+           "cold segments on disk")
+define_int("tier_cold_bits", 8,
+           "quantization width for cold-tier rows (1/2/4/8, float32 tables "
+           "only; lossy by at most step/2 per element); 0 stores raw bytes "
+           "(lossless, any dtype)")
+define_string("tier_dir", "",
+              "cold-tier spill root (one root per process): each tiered "
+              "table spills under <tier_dir>/tier<ordinal>, reused and "
+              "wiped across restarts. Empty = a fresh temporary directory "
+              "per table (the spill lives as long as the process)")
+define_int("tier_admit_touches", 2,
+           "frequency-sketch touches a cold key needs before a Get promotes "
+           "it back to the hot tier (second-chance admission: a one-shot "
+           "scan cannot thrash the hot working set); Adds always promote")
+
+# Sampling profiler (obs/profiler.py)
+define_double("profile_hz", 50.0,
+              "sampling rate of the profiler's frame walker (samples per "
+              "second over sys._current_frames()); values <= 0 fall back "
+              "to 50")
+define_int("profile_max_frames", 24,
+           "stack-depth cap per collapsed (flamegraph) stack; deeper "
+           "stacks keep their leaf-most frames")

@@ -12,7 +12,11 @@ The logistic-regression state crosses the same way:
 :func:`load_logreg_weights` (a ``LogReg``'s weights, or a ``PSLogReg``'s
 array table), :func:`load_ftrl_state` (an FTRL table's ``z``/``n``, dense
 or sparse) and :func:`load_sparse_state` (a sparse table's live keys and
-values); a host KV table's entries cross with :func:`load_kv_state`.
+values); a host KV table's entries cross with :func:`load_kv_state`, a
+device KV table's with :func:`load_device_kv_state` (by replay: the JAX
+table spreads its hash over 8 shards, the port's over one, so slot arrays
+do not carry over). A tiered table crosses through its snapshot bytes
+(:func:`load_snapshot`), which are the plain sparse or KV format.
 Nothing here imports the JAX package: the caller hands over plain arrays.
 A checkpoint file (``checkpoint.py``) is the second way across: the JAX
 package's ``store_table`` writes the same state, and the port's
@@ -30,7 +34,8 @@ from multiverso_tpu_torch.parallel import mesh as mesh_lib
 from multiverso_tpu_torch.runtime.zoo import Zoo
 from multiverso_tpu_torch.tables.array_table import ArrayServer
 from multiverso_tpu_torch.tables.ftrl_table import FTRLServer
-from multiverso_tpu_torch.tables.kv_table import KVServer
+from multiverso_tpu_torch.io import MemoryStream
+from multiverso_tpu_torch.tables.kv_table import DeviceKVServer, KVServer
 from multiverso_tpu_torch.tables.matrix_table import MatrixServer
 from multiverso_tpu_torch.tables.sparse_table import (SparseFTRLServer,
                                                       SparseServer)
@@ -134,6 +139,38 @@ def load_kv_state(table, items: Mapping[int, Any]) -> None:
         server._store = store
 
     Zoo.instance().server.run_serialized(install)
+
+
+def load_device_kv_state(table, items: Mapping[int, Any]) -> None:
+    """Replace a device KV table's entries with ``items`` (key -> value, as
+    the JAX ``KVWorker.get()`` returns them for its ``DeviceKVServer``):
+    the table is emptied at its capacity and the pairs replayed through
+    its growing insert path, so the key -> value map, not the slot layout,
+    carries over."""
+    server = getattr(table, "_server_table", table)
+    if not isinstance(server, DeviceKVServer):
+        raise TypeError(f"load_device_kv_state: unsupported table "
+                        f"{type(server).__name__}")
+    keys = np.fromiter((int(k) for k in items), np.int64, len(items))
+    values = np.fromiter(items.values(), server.value_dtype, len(items))
+
+    def install() -> None:
+        server._alloc(server.shard_capacity)
+        server._live = 0
+        if len(keys):
+            server.process_add((keys, values, None))
+
+    Zoo.instance().server.run_serialized(install)
+
+
+def load_snapshot(table, payload: bytes) -> None:
+    """Load a table's checkpoint bytes (``ServerTable.store`` of either
+    package) into ``table``, on the dispatcher. The tiered tables' bytes
+    are the plain sparse and KV formats, so a JAX tiered table crosses
+    into a port tiered table or a plain one, and back."""
+    server = getattr(table, "_server_table", table)
+    Zoo.instance().server.run_serialized(
+        lambda: server.load(MemoryStream(bytes(payload))))
 
 
 def load_ftrl_state(table, z: np.ndarray, n: np.ndarray,

@@ -13,7 +13,13 @@ and the two trainers. What changes with the framework:
 
 * Each step is eager torch. ``jax.lax.scan`` is a Python loop; steps
   update the parameter tensors in place (``index_add_`` for the
-  duplicate-accumulating scatters inside a step) and return them.
+  duplicate-accumulating scatters inside a step) and return them. On CUDA
+  ``index_add_`` sums duplicate rows with atomics in a varying order, so
+  under a deterministic server (the ``deterministic`` flag, read when a
+  step is built) the steps add rows with ``index_put_(accumulate=True)``
+  instead: it sorts the ids and sums each id's rows in index order, with
+  no atomics, so two runs are bitwise equal (on the CPU both are the same
+  serial loop).
 * Random draws come from a ``torch.Generator`` on the tables' device.
   JAX's threefry bits differ from torch's, so every step also takes
   injected draws (``draws``), and both trainers take a ``draw_hook``:
@@ -44,6 +50,7 @@ import torch.nn.functional as F
 import multiverso_tpu_torch as mvt
 from multiverso_tpu_torch import io as mv_io
 from multiverso_tpu_torch import log
+from multiverso_tpu_torch.config import get_flag
 from multiverso_tpu_torch.models.vocab import Dictionary, HuffmanEncoder
 from multiverso_tpu_torch.ops.rows import ROW_GROUP, gather_rows
 from multiverso_tpu_torch.ops.sampling import (build_alias_table,
@@ -160,6 +167,23 @@ def _scale_from_count(count: torch.Tensor, lr, cap: float) -> torch.Tensor:
     return torch.clamp(cap / torch.clamp(lr * count, min=1e-6), max=1.0)
 
 
+def _ordered_adds() -> bool:
+    """Whether a step being built adds rows in index order: under the
+    ``deterministic`` flag (the deterministic server's contract)."""
+    return bool(get_flag("deterministic"))
+
+
+def _add_rows(table: torch.Tensor, ids: torch.Tensor, deltas: torch.Tensor,
+              ordered: bool) -> None:
+    """In place ``table[ids[i]] += deltas[i]``, duplicate ids included.
+    ``ordered`` sums each id's rows in index order without atomics (the
+    deterministic server's contract); otherwise ``index_add_``."""
+    if ordered:
+        table.index_put_((ids,), deltas, accumulate=True)
+    else:
+        table.index_add_(0, ids, deltas)
+
+
 def _row_step_scale(num_rows: int, row_ids: torch.Tensor,
                     occ_weights: torch.Tensor, lr, cap: float) -> torch.Tensor:
     """:func:`_scale_from_count` over a scatter-aggregated count."""
@@ -170,13 +194,15 @@ def _row_step_scale(num_rows: int, row_ids: torch.Tensor,
 
 
 def _sgns_core(w_in, w_out, in_ids, in_weights, out_ids, labels, mask, lr,
-               combine: str = "sum", max_row_step: float = 1.0):
+               combine: str = "sum", max_row_step: float = 1.0,
+               ordered: bool = False):
     """Shared gradient core: input rows vs output rows, masked logistic loss.
 
     in_ids: (B, C) input rows averaged with in_weights (C=1 for skip-gram);
     out_ids/labels/mask: (B, T) output rows and their logistic targets.
-    Updates ``w_in``/``w_out`` in place (duplicates accumulate) and returns
-    (w_in, w_out, loss)."""
+    Updates ``w_in``/``w_out`` in place (duplicates accumulate, in index
+    order when ``ordered``) and returns (w_in, w_out, loss). The occurrence
+    counts sum whole numbers, exact in any order."""
     in_ids = in_ids.long()
     out_ids = out_ids.long()
     v_rows = w_in[in_ids]                                           # (B, C, D)
@@ -213,8 +239,8 @@ def _sgns_core(w_in, w_out, in_ids, in_weights, out_ids, labels, mask, lr,
                                     max_row_step)
         gin = gin * in_scale[flat_in][:, None]
         gout = gout * out_scale[flat_out][:, None]
-    w_in.index_add_(0, flat_in, -lr * gin)
-    w_out.index_add_(0, flat_out, -lr * gout)
+    _add_rows(w_in, flat_in, -lr * gin, ordered)
+    _add_rows(w_out, flat_out, -lr * gout, ordered)
     return w_in, w_out, loss
 
 
@@ -228,9 +254,11 @@ def make_train_step(config: Word2VecConfig, dictionary: Dictionary,
            for cbow — dict(centers (B,), context_block (B, 2W) id or -1).
     ``draws`` may carry {"neg": (B, K) vocabulary ids} for ns. The sampler
     and the Huffman arrays live on ``device`` (``cuda`` unless the CPU is
-    asked for).
+    asked for). Under the ``deterministic`` flag it adds rows in index
+    order.
     """
     device = mesh_lib.build_device(str(device))
+    ordered = _ordered_adds()
     if config.objective == "ns":
         sampler = unigram_negative_sampler(dictionary.counts, device=device)
         hs_arrays = None
@@ -271,7 +299,7 @@ def make_train_step(config: Word2VecConfig, dictionary: Dictionary,
         w_in, w_out, loss = _sgns_core(params["w_in"], params["w_out"],
                                        in_ids, in_weights, out_ids, labels,
                                        mask, lr, config.grad_combine,
-                                       config.max_row_step)
+                                       config.max_row_step, ordered)
         return {"w_in": w_in, "w_out": w_out}, loss
 
     return step
@@ -290,11 +318,13 @@ def make_block_train_step(config: Word2VecConfig, dictionary: Dictionary,
     are uniform draws over ``neg_slots`` (the PS path's slot-alias table);
     otherwise the unigram^0.75 sampler. ``draws`` = {"win": (T,),
     "neg": (T/G, K)} replaces the generator's draws. The sampler lives on
-    ``device`` (``cuda`` unless the CPU is asked for).
+    ``device`` (``cuda`` unless the CPU is asked for). Under the
+    ``deterministic`` flag it adds rows in index order.
     """
     if config.mode != "sg" or config.objective != "ns":
         log.fatal("block step supports sg+ns (the benchmark path)")
     device = mesh_lib.build_device(str(device))
+    ordered = _ordered_adds()
     sampler = (None if neg_table
                else unigram_negative_sampler(dictionary.counts, device=device))
     window = config.window
@@ -418,9 +448,10 @@ def make_block_train_step(config: Word2VecConfig, dictionary: Dictionary,
             g_out_local = g_out_local * out_scale[blk_out_ids][:, None]
             grad_u_neg = grad_u_neg * out_scale[negs_id][:, :, None]
         dim = w_in.shape[1]
-        w_in.index_add_(0, centers_id, -lr * gin)
-        w_out.index_add_(0, blk_out_ids, -lr * g_out_local)
-        w_out.index_add_(0, negs_id.reshape(-1), (-lr * grad_u_neg).reshape(-1, dim))
+        _add_rows(w_in, centers_id, -lr * gin, ordered)
+        _add_rows(w_out, blk_out_ids, -lr * g_out_local, ordered)
+        _add_rows(w_out, negs_id.reshape(-1),
+                  (-lr * grad_u_neg).reshape(-1, dim), ordered)
         params = {"w_in": w_in, "w_out": w_out}
         if with_pairs:
             return params, loss, pm.sum()
@@ -734,7 +765,7 @@ def host_negative_sampler(counts: np.ndarray, power: float = 0.75):
     return draw
 
 
-def _candidate_step_fn(config: Word2VecConfig):
+def _candidate_step_fn(config: Word2VecConfig, ordered: bool):
     """Compact-space pair step for the PS client: trains a stack of N
     minibatches whose ids are remapped into the pulled candidate-row space,
     in order. ``step(w_in_c, w_out_c, batches, lr) -> (w_in_c, w_out_c,
@@ -749,7 +780,7 @@ def _candidate_step_fn(config: Word2VecConfig):
             w_in_c, w_out_c, loss = _sgns_core(
                 w_in_c, w_out_c, batches["in_ids"][i], batches["in_weights"][i],
                 batches["out_ids"][i], batches["labels"][i], mask, lr,
-                combine, cap)
+                combine, cap, ordered)
             losses.append(loss * torch.clamp(mask.sum(), min=0.0))
             weights.append(mask.sum())
         return w_in_c, w_out_c, torch.stack(losses).sum(), torch.stack(weights).sum()
@@ -761,8 +792,9 @@ def make_candidate_delta_step(config: Word2VecConfig):
     """Device-IO variant: consumes the gather buckets (bucket,
     padded_cols) as they come from the table and returns the PUSH PAYLOAD
     (delta · scale) and a (2,) stats tensor. Labels and mask arrive as
-    uint8. Trains on copies: the gathered rows stay as they were."""
-    step = _candidate_step_fn(config)
+    uint8. Trains on copies: the gathered rows stay as they were. Under
+    the ``deterministic`` flag it adds rows in index order."""
+    step = _candidate_step_fn(config, _ordered_adds())
     dim = config.dim
 
     def dstep(cached_in, cached_out, batches, lr, scale):

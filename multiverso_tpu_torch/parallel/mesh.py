@@ -63,3 +63,9 @@ def shard_ranges(total: int, num_shards: int) -> List[Tuple[int, int]]:
         end = total if i == num_shards - 1 else chunk * (i + 1)
         ranges.append((begin, end))
     return ranges
+
+
+def table_shards() -> int:
+    """Server shards a device-resident table spreads over: the size of the
+    JAX package's ``server`` mesh axis. One torch device is one shard."""
+    return 1

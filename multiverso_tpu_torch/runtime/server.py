@@ -13,7 +13,8 @@ acknowledges them at enqueue; :class:`SyncServer` is BSP with two-sided
 per-worker vector clocks (*every worker's i-th Get observes exactly i
 rounds of every worker's Adds*), backup workers and a stall watchdog;
 :class:`SSPServer` bounds how many add-rounds a worker may lead the
-slowest. None of them fuses Adds.
+slowest. None of them fuses Adds. A top-k query (``Request_Query``) is
+served on the dispatcher like a Get but passes every round gate.
 
 Not yet ported, each for its own slice: admission control, priority lanes,
 deadlines, the write-ahead log (the JAX servers append to it where they
@@ -32,6 +33,7 @@ from typing import Callable, Dict, List, Optional
 from multiverso_tpu_torch import config, log
 from multiverso_tpu_torch.dashboard import (Dashboard, gauge_set, log_bounds,
                                             monitor, observe)
+from multiverso_tpu_torch.runtime.contracts import dispatcher_only
 from multiverso_tpu_torch.runtime.message import Message, MsgType
 from multiverso_tpu_torch.utils import MtQueue
 
@@ -294,7 +296,11 @@ class Server:
             self._process_add(msg)
         elif msg.type == MsgType.Request_Get:
             self._process_get(msg)
+        elif msg.type == MsgType.Request_Query:
+            self._process_query(msg)
         elif msg.type == MsgType.Server_Execute:
+            # administrative callable, serialized with table traffic:
+            # never clocked, identical on every server flavor
             fn, completion = msg.data
             completion.done(fn())
         elif msg.type == MsgType.Server_Finish_Train:
@@ -313,6 +319,17 @@ class Server:
         with monitor("SERVER_PROCESS_GET_MSG"):
             request, completion = msg.data
             completion.done(self._tables[msg.table_id].process_get(request))
+
+    @dispatcher_only
+    def _process_query(self, msg: Message) -> None:
+        """Request_Query: top-k retrieval pushdown (``query/``). Serialized
+        with applies like a Get, so a query sees every Add queued before
+        it, but never clocked: on every server flavor it passes the round
+        gates as ``Server_Execute`` does."""
+        from multiverso_tpu_torch.query import query_table
+        with monitor("SERVER_PROCESS_QUERY_MSG"):
+            request, completion = msg.data
+            completion.done(query_table(self._tables[msg.table_id], request))
 
     def _process_finish_train(self, msg: Message) -> None:
         pass  # the async server has no clocks to drain

@@ -137,6 +137,25 @@ class WorkerTable:
         with monitor("WORKER_TABLE_SYNC_ADD"):
             return self.wait(self._submit(MsgType.Request_Add, request))
 
+    def query(self, vecs: Any, k: int, metric: str = "dot") -> Any:
+        """Server-side top-k retrieval pushdown: score every row of the
+        table against ``vecs`` ((n_q, dim) float32) under ``metric``
+        (``dot`` | ``cosine``) and return ``(ids, scores)``, each
+        (n_q, k') with k' = min(k, rows), ranked score-descending with
+        ties toward the lower id. Served on the dispatcher after every
+        Add queued before it, and never clocked: the round gates of the
+        BSP, SSP and deterministic servers do not hold it.
+
+        Bypasses wait()/process_reply_get: the reply is already the final
+        (ids, scores) pair."""
+        from multiverso_tpu_torch.query.engine import check_request
+        request = check_request((vecs, k, metric))
+        with monitor("WORKER_TABLE_SYNC_QUERY"):
+            completion = Completion()
+            self._channel.submit(self.table_id, MsgType.Request_Query,
+                                 request, next_msg_id(), completion)
+            return completion.wait()
+
     def finish_train(self) -> None:
         """Signal end-of-training (reference: ``Server_Finish_Train``)."""
         self._channel.post(self.table_id, MsgType.Server_Finish_Train)

@@ -20,8 +20,11 @@ Checkpoints (``store``/``load``) write the live keys sorted, then their
 rows (``SparseFTRLServer``: each key's ``z`` then ``n`` row), byte for byte
 as the JAX package does.
 
-Not yet ported: the wire proxies (``remote_spec``) and the tiered server
-(``TieredSparseServer``, with ``store/``).
+:class:`TieredSparseServer` keeps the rows in a hot/cold
+:class:`~multiverso_tpu_torch.store.TieredStore` under a byte budget
+(``make_tiered_sparse``); its snapshot is the plain sparse format.
+
+Not yet ported: the wire proxies (``remote_spec``).
 """
 
 from __future__ import annotations
@@ -186,6 +189,81 @@ class SparseFTRLServer(ServerTable):
             self._n[k] = np.frombuffer(stream.read(row), np.float32).copy()
 
 
+class TieredSparseServer(SparseServer):
+    """SparseServer whose row store is hot/cold tiered (``store/``): hot
+    rows stay dict-resident under ``tier_resident_bytes``; the LRU tail
+    spills to quantized CRC-framed segments on disk and promotes back on
+    access through a frequency-sketch admission filter.
+
+    Everything above the store is unchanged: its snapshot is the plain
+    sparse format. Demotion runs inside ``process_add``, on the
+    dispatcher, after the triggering Add has applied."""
+
+    def __init__(self, key_space: int, width: int = 1,
+                 dtype: Any = np.float32, updater_type: str = "",
+                 resident_bytes: Optional[int] = None,
+                 cold_bits: Optional[int] = None,
+                 tier_dir: Optional[str] = None,
+                 admit_touches: Optional[int] = None) -> None:
+        super().__init__(key_space, width, dtype, updater_type)
+        from multiverso_tpu_torch.store import TieredStore
+        self._tier = TieredStore(self.width, self.dtype,
+                                 resident_bytes=resident_bytes,
+                                 cold_bits=cold_bits, directory=tier_dir,
+                                 admit_touches=admit_touches)
+        self._store = None  # any missed base-class path must fail loudly
+
+    def process_add(self, request) -> None:
+        keys, values, _option = request
+        keys = self._check_keys(keys)
+        values = np.asarray(values, dtype=self.dtype).reshape(-1, self.width)
+        if len(keys) != len(values):
+            log.fatal("sparse.add: %d keys but %d value rows",
+                      len(keys), len(values))
+        signed = np.asarray(self._sign * values, dtype=self.dtype)
+        tier = self._tier
+        for k, v in zip(keys.tolist(), signed):
+            row = tier.get_for_update(k)
+            if row is None:
+                tier.put(k, v.copy())
+            else:
+                row += v
+        tier.maybe_maintain()
+
+    def process_get(self, request):
+        keys, _option = request
+        if keys is None:
+            snap = dict(self._tier.items())
+            live = np.fromiter(snap.keys(), dtype=np.int64, count=len(snap))
+            live.sort()
+            vals = (np.stack([snap[k] for k in live.tolist()])
+                    if len(live) else np.zeros((0, self.width), self.dtype))
+            return live, vals
+        keys = self._check_keys(keys)
+        out = np.zeros((len(keys), self.width), self.dtype)
+        for i, k in enumerate(keys.tolist()):
+            row = self._tier.get(k)
+            if row is not None:
+                out[i] = row
+        return out
+
+    # store() is inherited: it snapshots via process_get((None, None)).
+    def load(self, stream) -> None:
+        count, width = struct.unpack("<qq", stream.read(16))
+        if width != self.width:
+            log.fatal("sparse.load: width %d != %d", width, self.width)
+        keys = np.frombuffer(stream.read(8 * count), dtype=np.int64)
+        vals = np.frombuffer(stream.read(self.dtype.itemsize * count * width),
+                             dtype=self.dtype).reshape(count, width)
+        self._tier.clear()
+        for k, v in zip(keys.tolist(), vals):
+            self._tier.put(k, v.copy())
+        self._tier.maybe_maintain()  # a beyond-RAM snapshot re-tiers on load
+
+    def tier_stats(self) -> Dict[str, int]:
+        return self._tier.stats()
+
+
 class SparseWorker(WorkerTable):
     """Client proxy: O(nnz) get/add over arbitrary integer keys.
 
@@ -249,3 +327,15 @@ def make_sparse_ftrl(key_space: int, width: int = 1, **kwargs: Any
                      ) -> SparseWorker:
     """Factory for ``register_table_type("sparse_ftrl", ...)``."""
     return SparseWorker(key_space, width, ftrl=True, **kwargs)
+
+
+def make_tiered_sparse(key_space: int, width: int = 1,
+                       dtype: Any = np.float32, updater_type: str = "",
+                       **tier_kwargs: Any) -> SparseWorker:
+    """Factory for ``register_table_type("tiered_sparse", ...)``: a
+    SparseWorker served by a beyond-RAM :class:`TieredSparseServer`
+    (``tier_kwargs``: resident_bytes / cold_bits / tier_dir /
+    admit_touches; defaults come from the ``tier_*`` flags)."""
+    server = TieredSparseServer(key_space, width, dtype, updater_type,
+                                **tier_kwargs)
+    return SparseWorker(key_space, width, dtype, updater_type, server=server)

@@ -39,7 +39,14 @@ def test_import_pulls_in_no_jax():
             "multiverso_tpu_torch.tables.sparse_table",
             "multiverso_tpu_torch.tables.ftrl_table", "multiverso_tpu_torch.io",
             "multiverso_tpu_torch.checkpoint",
-            "multiverso_tpu_torch.models.lr_io"} <= set(loaded)
+            "multiverso_tpu_torch.models.lr_io",
+            "multiverso_tpu_torch.ops.device_hash",
+            "multiverso_tpu_torch.store", "multiverso_tpu_torch.store.coldstore",
+            "multiverso_tpu_torch.store.tiered",
+            "multiverso_tpu_torch.query", "multiverso_tpu_torch.query.engine",
+            "multiverso_tpu_torch.utils.quantization",
+            "multiverso_tpu_torch.runtime.contracts",
+            "multiverso_tpu_torch.obs.profiler"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -53,5 +53,9 @@ def test_kv_matches_jax(both, dtype):
 
 
 def test_kv_device_backend_not_yet_ported(both):
-    with pytest.raises(mvt.log.FatalError, match="not yet ported"):
-        mvt.create_table("kv", np.float32, capacity=64)
+    """Ported since: ``capacity=`` selects the device hash backend, which
+    agrees with the JAX one (``tests/test_torch_device_kv.py``)."""
+    table = mvt.create_table("kv", np.float32, capacity=64)
+    assert isinstance(table._server_table, mvt.DeviceKVServer)
+    table.add([3, 3, 70], [1.0, 2.0, 4.0])
+    assert table.get() == {3: 3.0, 70: 4.0}
