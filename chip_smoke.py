@@ -110,7 +110,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    its hot budget (8-bit cold segments, no promotion), each against a
    numpy oracle (ids exact, ties included; scores rtol 1e-5, atol 1e-6);
    queries/s and p50/p99 ms a call.
-13. The run's seconds, one JSON line listing every kernel, then the last line
+13. Model-averaging ASGD at the reference's published shape: ResNet-32,
+   width 16 (464,154 parameters, one 1.86 MB float32 array table), batch
+   128, bf16 autocast, 10,240 synthetic CIFAR images, 2 epochs a row
+   (row 3: 8): 1 worker without the PS, 1 worker through ``ASGDTrainer``
+   (a sync a batch; both at lr 0.01, momentum 0.9), 4 workers (lr 0.02,
+   momentum 0.5), 4 workers pipelined; images/s, s/epoch, worker-side sync
+   p50/p99, training-set accuracy, the PS overhead of row 2 over row 1,
+   the card's idle share over a traced epoch of row 3. Checks: the port
+   in float32 (TF32 off, depth 8) on the card against the CPU, logits and
+   parameters after 3 steps and a sync; one ResNet-32 step in bf16 and in
+   float32 on the card against the CPU's float32 step; every row's table
+   equal to init + the float64 sum of the deltas its workers pushed (4 x
+   41 pushes in 2 epochs); rows 1-2 above ``ASGD_ROW12_BAR`` and within
+   ``ASGD_ROW12_GAP`` of each other, row 3 above ``ASGD_LEARN_BAR``; BSP
+   with 2 workers for 8 rounds (equal pulls each round, the sum again);
+   row 3's table checkpointed and restored bitwise into a fresh world;
+   ``mvt.aggregate`` across 4 workers of host arrays, host leaf lists and
+   device tensor lists in ResNet-32's leaf shapes, equal to numpy's sum,
+   each worker's device result its own buffers (ms a call). No row
+   kernel runs here: the array table's update and the model are torch
+   operators, as they are XLA in the JAX package.
+14. The run's seconds, one JSON line listing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
@@ -2275,6 +2296,459 @@ def query_phase(mvt, rows, device: str, card: str, scratch: str,
     return metrics, launches
 
 
+# ASGD: the reference's published ResNet-32 protocol
+# (multiverso_tpu/models/resnet.py:1-30) on synthetic CIFAR-shaped data
+ASGD_N, ASGD_EPOCHS, ASGD_BATCH = 10_240, 2, 128
+ASGD_CHECK_DEPTH = 8           # the card-against-CPU and BSP checks
+ASGD_BSP_ROUNDS = 8
+ASGD_RTOL, ASGD_ATOL = 1e-4, 1e-5   # card against CPU, float32, TF32 off
+# the table against init + the float64 sum of every delta the workers
+# pushed: each float32 apply of a delta into weights of order 1 rounds by
+# a few 1e-8. On an H100 rows 2-4 (161-644 pushes) read 6.0e-8 to
+# 4.8e-7 and BSP (16 pushes) 1.2e-7; with the 10th push acknowledged but
+# not applied (asgd_probe.py plants that in a copy of the port) rows 3
+# and 4 read 0.051 and 0.108 after 2 epochs. The limit lies between, 21x
+# over the largest sound reading
+ASGD_CONSERVATION_ATOL = 1e-5
+# one ResNet-32 step (rows 1-2's init, lr and first batch) on the card
+# against the CPU's float32 step, relative L2 over the logits and over
+# the update p1 - p0. On an H100 (asgd_probe.py): bf16 2.7e-3 and 1.8e-2
+# (at depth 32 bf16 rounding noise is as large against a second bf16
+# implementation, the CPU's: 2.7e-3 and 1.4e-2), float32 with TF32 off
+# 2.9e-7 and 9.1e-5, a bf16 step on the next batch 0.26 on the update.
+# The bf16 step must also read above 10x the float32 one (it ran in
+# bf16), and the next batch's above the update limit (the limit tells
+# gradients apart)
+ASGD_BF16_LOGITS_REL, ASGD_BF16_UPDATE_REL = 1e-2, 0.06
+ASGD_F32_LOGITS_REL, ASGD_F32_UPDATE_REL = 1e-5, 1e-3
+# rows 1 and 2 (one worker, without and with the PS) at lr 0.01 and
+# momentum 0.9: at the reference's lr 0.1 without a warm-up ResNet-32 does
+# not learn this data in 2 epochs (on an H100, asgd_probe.py: 0.205 in
+# bf16, 0.178 in float32, 0.109 through the PS); at lr 0.01 the two rows
+# read 0.972 and 0.976. Each must reach ASGD_ROW12_BAR, and row 2 (the PS
+# path) must stay within ASGD_ROW12_GAP of row 1 (0.002-0.010 apart at
+# lr 0.01-0.02)
+ASGD_ROW12 = dict(lr=0.01, momentum=0.9)
+ASGD_ROW12_BAR, ASGD_ROW12_GAP = 0.8, 0.05
+# row 3: 4 workers at lr 0.02, momentum 0.5, for 8 epochs where the other
+# rows take 2. Each worker steps on parameters it pulled before its 3
+# peers pushed (the JAX trainer's cadence: step, then sync), so the
+# merged model moves about a round of 4 batches at a time: on an H100 it
+# read 0.101-0.151 after 2 epochs (chance is 0.1, the largest class
+# 0.104; asgd_probe.py: the same cadence run by one thread in turns
+# 0.104-0.179, against 0.36-0.69 with a pull right before each step),
+# 0.348 after 4 and 0.694-0.912 after 8. The merged model must reach 0.3
+ASGD_ROW3_EPOCHS = 8
+ASGD_LEARN_BAR = 0.3
+
+
+class DeltaLedger:
+    """Wraps a table proxy's pair pushes (``sync_leaves_async`` with a
+    baseline, ``push_leaves_async``): on the calling worker's side, before
+    the push goes out, it adds ``new - last`` into a float64 sum. At the end
+    the table must equal ``init + sum``: no push lost, none read after the
+    worker stepped its parameters in place."""
+
+    def __init__(self, table) -> None:
+        self.table, self.total, self.pushes = table, None, 0
+        self._lock = threading.Lock()
+        sync, push = table.sync_leaves_async, table.push_leaves_async
+
+        def flat(leaves):
+            return torch.cat([x.detach().reshape(-1).double() for x in leaves])
+
+        def record(new, last):
+            d = flat(new) - flat(last)
+            with self._lock:
+                self.total = d if self.total is None else self.total + d
+                self.pushes += 1
+
+        def sync_leaves_async(delta_leaves, option=None, last_leaves=None):
+            if last_leaves is not None:
+                record(delta_leaves, last_leaves)
+            return sync(delta_leaves, option, last_leaves)
+
+        def push_leaves_async(new_leaves, last_leaves, option=None):
+            record(new_leaves, last_leaves)
+            return push(new_leaves, last_leaves, option)
+
+        table.sync_leaves_async = sync_leaves_async
+        table.push_leaves_async = push_leaves_async
+
+    def check(self, mvt, init: np.ndarray, what: str) -> float:
+        with mvt.Zoo.instance().admin():
+            final = self.table.get()
+        want = init.astype(np.float64) + self.total.cpu().numpy()
+        err = float(np.abs(final - want).max())
+        if not err <= ASGD_CONSERVATION_ATOL:
+            raise AssertionError(f"{what}: table - (init + sum of {self.pushes} "
+                                 f"pushed deltas) max |diff| {err}")
+        return err
+
+
+def sync_device(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def asgd_row(mvt, resnet, device: str, cfg, X, y, workers: int,
+             pipeline: bool = False, epochs: int = ASGD_EPOCHS,
+             batch: int = ASGD_BATCH, hold=None):
+    """One ``ASGDTrainer`` row in a fresh runtime: images/s, s/epoch, the
+    worker-side sync p50/p99, training-set accuracy, the conservation
+    error. ``hold(trainer, state)`` runs before the runtime stops."""
+    mvt.init(local_workers=workers, device=device)
+    try:
+        trainer = resnet.ASGDTrainer(cfg, workers=workers, sync_freq=1,
+                                     input_shape=X.shape[1:], pipeline=pipeline)
+        book = DeltaLedger(trainer.manager.table)
+        with mvt.Zoo.instance().admin():
+            init = trainer.manager.table.get()
+        sync_device(device)
+        t0 = time.perf_counter()
+        state = trainer.train(X, y, epochs=epochs, batch=batch, timeout=JOIN_S)
+        sync_device(device)
+        seconds = time.perf_counter() - t0
+        steps = workers * epochs * ((len(X) // workers) // batch)
+        sync_ms = np.array(trainer.sync_seconds) * 1e3
+        out = {"workers": workers, "pipeline": pipeline,
+               "images_per_s": steps * batch / seconds,
+               "s_per_epoch": seconds / epochs, "steps": steps,
+               "sync_p50_ms": float(np.percentile(sync_ms, 50)),
+               "sync_p99_ms": float(np.percentile(sync_ms, 99)),
+               "accuracy": resnet.evaluate(trainer.model, cfg, state, X, y)}
+        out["conservation_max_abs"] = book.check(
+            mvt, init, f"ASGD {workers} workers pipeline={pipeline}")
+        out["pushes"] = book.pushes
+        if hold is not None:
+            out.update(hold(trainer, state))
+        return out
+    finally:
+        stop_runtime(mvt)
+
+
+def asgd_plain_row(resnet, device: str, cfg, X, y, epochs: int = ASGD_EPOCHS,
+                   batch: int = ASGD_BATCH) -> dict:
+    """Row 1: one worker, no PS: the train step over the same device-side
+    batches the trainer draws (the data uploaded once, a shuffled order)."""
+    dev = torch.device(device)
+    model, variables = resnet.init_resnet(cfg, 0, (1,) + X.shape[1:], device=dev)
+    step = resnet.make_train_step(model, cfg)
+    state = resnet.train_state(model, cfg, variables)
+    xs = torch.from_numpy(X).to(dev)
+    ys = torch.from_numpy(y.astype(np.int64)).to(dev)
+    order, rng = np.arange(len(X)), np.random.default_rng(0)
+    steps = 0
+    sync_device(device)
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        rng.shuffle(order)
+        for i in range(0, len(X) - batch + 1, batch):
+            idx = torch.from_numpy(order[i:i + batch]).to(dev)
+            state, _ = step(state, xs[idx], ys[idx], cfg.lr)
+            steps += 1
+    sync_device(device)
+    seconds = time.perf_counter() - t0
+    return {"workers": 1, "ps": False, "images_per_s": steps * batch / seconds,
+            "s_per_epoch": seconds / epochs, "steps": steps,
+            "accuracy": resnet.evaluate(model, cfg, state, X, y)}
+
+
+def asgd_card_vs_cpu(mvt, resnet, device: str, X, y, depth: int, width: int,
+                     batch: int) -> dict:
+    """The port in float32 with TF32 off: logits of one batch from the same
+    seeded init on ``device`` and on the CPU; then a 1-worker trainer's
+    parameters after 3 steps and its one (final) sync, on both."""
+    cfg = resnet.ResNetConfig(depth=depth, width=width,
+                              compute_dtype=torch.float32)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lg, params = {}, {}
+        for dev in (device, "cpu"):
+            model, v = resnet.init_resnet(cfg, 0, (1,) + X.shape[1:], device=dev)
+            lg[dev] = resnet.logits(model, v, X[:batch]).cpu().numpy()
+            mvt.init(local_workers=1, device=dev)
+            try:
+                trainer = resnet.ASGDTrainer(cfg, workers=1, sync_freq=4,
+                                             input_shape=X.shape[1:])
+                state = trainer.train(X[:3 * batch], y[:3 * batch], epochs=1,
+                                      batch=batch, timeout=JOIN_S)
+                params[dev] = torch.cat([state["params"][k].reshape(-1).cpu()
+                                         for k in sorted(state["params"])]).numpy()
+            finally:
+                stop_runtime(mvt)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    out = {}
+    for what, got, want in (("logits", lg[device], lg["cpu"]),
+                            ("params after 3 steps and a sync",
+                             params[device], params["cpu"])):
+        np.testing.assert_allclose(got, want, rtol=ASGD_RTOL, atol=ASGD_ATOL,
+                                   err_msg=f"ASGD card against CPU: {what}")
+        out[what.split()[0] + "_max_abs_diff"] = float(np.abs(got - want).max())
+    return out
+
+
+def asgd_bf16_step(resnet, device: str, X, y, depth: int, width: int,
+                   batch: int, ref_dtype=torch.float32) -> dict:
+    """One ResNet-``depth`` train step at rows 1-2's settings from the same
+    seeded init and batch: the CPU's step in ``ref_dtype`` is the
+    reference, and each card step reads relative L2 errors of the logits
+    before the step and of the update ``p1 - p0``, and the loss's relative
+    error. The card steps: bf16 autocast (the rows' step), float32 with
+    TF32 off, and bf16 on the next batch (a gradient that is not this
+    batch's)."""
+    def flat(params):
+        return torch.cat([params[k].detach().reshape(-1).double().cpu()
+                          for k in sorted(params)])
+
+    def run(dev, dtype, lo=0):
+        cfg = resnet.ResNetConfig(depth=depth, width=width,
+                                  compute_dtype=dtype, **ASGD_ROW12)
+        model, v = resnet.init_resnet(cfg, 0, (1,) + X.shape[1:], device=dev)
+        p0 = flat(v["params"])
+        lg = resnet.logits(model, v, X[:batch]).double().cpu()
+        state, loss = resnet.make_train_step(model, cfg)(
+            resnet.train_state(model, cfg, v), X[lo:lo + batch],
+            y[lo:lo + batch], cfg.lr)
+        return lg, float(loss), flat(state["params"]) - p0
+
+    ref = run("cpu", ref_dtype)
+
+    def errors(got):
+        return {"logits": float((got[0] - ref[0]).norm() / ref[0].norm()),
+                "loss": abs(got[1] - ref[1]) / abs(ref[1]),
+                "update": float((got[2] - ref[2]).norm() / ref[2].norm())}
+
+    out = {"bf16": errors(run(device, torch.bfloat16)),
+           "other_batch": errors(run(device, torch.bfloat16, batch))}
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out["float32"] = errors(run(device, torch.float32))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    out["loss"] = ref[1]
+    return out
+
+
+def asgd_bsp(mvt, resnet, device: str, X, y, depth: int, width: int,
+             batch: int, rounds: int = ASGD_BSP_ROUNDS) -> dict:
+    """Two workers under BSP (``-sync``), ``rounds`` rounds of one step and
+    one view sync each: every round both workers pull equal parameters,
+    and the final table equals init + the sum of the pushed deltas."""
+    import copy
+
+    from multiverso_tpu_torch.ext import PytreeParamManager
+    mvt.init(sync=True, local_workers=2, device=device)
+    try:
+        cfg = resnet.ResNetConfig(depth=depth, width=width, lr=0.02,
+                                  momentum=0.5)
+        model, v = resnet.init_resnet(cfg, 0, (1,) + X.shape[1:], device=device)
+        pm = PytreeParamManager(v["params"])
+        book = DeltaLedger(pm.table)
+        with mvt.Zoo.instance().admin():
+            init = pm.table.get()
+        views = [pm.worker_view(device=True) for _ in range(2)]
+        pulled = [[None] * rounds for _ in range(2)]
+        xs = torch.from_numpy(X[:2 * rounds * batch]).to(device)
+        ys = torch.from_numpy(y[:2 * rounds * batch].astype(np.int64)).to(device)
+
+        def work(slot):
+            with mvt.worker(slot):
+                step = resnet.make_train_step(copy.deepcopy(model), cfg)
+                state = resnet.train_state(model, cfg,
+                                           {"params": views[slot].params})
+                for r in range(rounds):
+                    lo = (slot * rounds + r) * batch
+                    state, _ = step(state, xs[lo:lo + batch], ys[lo:lo + batch],
+                                    cfg.lr)
+                    state["params"] = views[slot].sync(state["params"])
+                    pulled[slot][r] = torch.cat(
+                        [state["params"][k].reshape(-1)
+                         for k in sorted(state["params"])])
+
+        join_workers(2, work, JOIN_S)
+        for r in range(rounds):
+            if not torch.equal(pulled[0][r], pulled[1][r]):
+                raise AssertionError(f"BSP ASGD: round {r}: the two workers "
+                                     f"pulled different parameters")
+        err = book.check(mvt, init, "BSP ASGD")
+        return {"rounds": rounds, "pushes": book.pushes,
+                "conservation_max_abs": err}
+    finally:
+        stop_runtime(mvt)
+
+
+def asgd_aggregate(mvt, device: str, shapes, calls: int = 20) -> dict:
+    """``mvt.aggregate`` across 4 workers of host arrays, host leaf lists and
+    device tensor lists in ResNet-32's leaf shapes, integer-valued floats:
+    each sum equal to numpy's exactly, each worker's device result its own
+    buffers; ms a call (host clock, device synchronised)."""
+    workers = WORKERS
+    mvt.init(ma=True, local_workers=workers, device=device)
+    try:
+        host = {s: [np.random.default_rng(s).integers(-8, 9, size=sh)
+                    .astype(np.float32) for sh in shapes] for s in range(workers)}
+        dev = {s: [torch.from_numpy(x).to(device) for x in host[s]]
+               for s in range(workers)}
+        flat = {s: np.concatenate([x.reshape(-1) for x in host[s]])
+                for s in range(workers)}
+        want = [sum(host[s][i] for s in range(workers)) for i in range(len(shapes))]
+        kinds = {"host_array": flat, "host_leaves": host, "device_leaves": dev}
+        results, ms = {}, {}
+        for kind, values in kinds.items():
+            got = {}
+
+            def work(slot):
+                with mvt.worker(slot):
+                    got[slot] = mvt.aggregate(values[slot])
+                    for _ in range(calls - 1):
+                        mvt.aggregate(values[slot])
+
+            sync_device(device)
+            t0 = time.perf_counter()
+            join_workers(workers, work, JOIN_S)
+            sync_device(device)
+            ms[kind] = (time.perf_counter() - t0) * 1e3 / calls
+            results[kind] = got
+        for s in range(workers):
+            np.testing.assert_array_equal(
+                results["host_array"][s],
+                np.concatenate([w.reshape(-1) for w in want]))
+            for kind in ("host_leaves", "device_leaves"):
+                for g, w in zip(results[kind][s], want, strict=True):
+                    g = g.cpu().numpy() if isinstance(g, torch.Tensor) else g
+                    np.testing.assert_array_equal(g, w, err_msg=kind)
+        ptrs = [x.data_ptr() for s in range(workers)
+                for x in results["device_leaves"][s]]
+        if len(set(ptrs)) != len(ptrs):
+            raise AssertionError("aggregate: workers share device buffers")
+        for x in results["device_leaves"][0]:
+            x.add_(1.0)
+        for s in range(1, workers):
+            for g, w in zip(results["device_leaves"][s], want):
+                np.testing.assert_array_equal(g.cpu().numpy(), w)
+        return {f"{k}_ms_per_call": v for k, v in ms.items()}
+    finally:
+        stop_runtime(mvt)
+
+
+def asgd_phase(mvt, device: str, scratch: str, depth: int = 32,
+               width: int = 16, n: int = ASGD_N, batch: int = ASGD_BATCH,
+               check_depth: int = ASGD_CHECK_DEPTH, learn_bar=ASGD_LEARN_BAR,
+               row12_bar=ASGD_ROW12_BAR,
+               profiled: bool = True) -> dict:
+    """ResNet-``depth`` ASGD on ``device``: rows 1-4, the checks, the
+    checkpoint, ``mvt.aggregate``, the idle share of row 3."""
+    from multiverso_tpu_torch.checkpoint import CheckpointDriver
+    from multiverso_tpu_torch.ext import PytreeParamManager
+    from multiverso_tpu_torch.models import resnet
+
+    t_phase = time.perf_counter()
+    X, y = resnet.synthetic_cifar(n, 10, seed=0, shape=(32, 32, 3))
+    metrics = {"card_vs_cpu": asgd_card_vs_cpu(mvt, resnet, device, X, y,
+                                               check_depth, width, batch)}
+    step = metrics["bf16_step"] = asgd_bf16_step(resnet, device, X, y, depth,
+                                                 width, batch)
+    for what, err, lg_lim, up_lim in (
+            ("bf16", step["bf16"], ASGD_BF16_LOGITS_REL, ASGD_BF16_UPDATE_REL),
+            ("float32", step["float32"], ASGD_F32_LOGITS_REL,
+             ASGD_F32_UPDATE_REL)):
+        if not (err["logits"] <= lg_lim and err["update"] <= up_lim):
+            raise AssertionError(f"ASGD {what} step against the CPU's float32 "
+                                 f"step: {err} (limits {lg_lim}, {up_lim})")
+    if not step["bf16"]["logits"] > 10 * step["float32"]["logits"]:
+        raise AssertionError(f"ASGD: the bf16 step reads like a float32 one: "
+                             f"{step}")
+    if not step["other_batch"]["update"] > ASGD_BF16_UPDATE_REL:
+        raise AssertionError(f"ASGD: the update limit passes another batch's "
+                             f"step: {step['other_batch']}")
+    base = resnet.ResNetConfig(depth=depth, width=width, **ASGD_ROW12)
+    n_params = sum(p.numel() for p in resnet.init_resnet(
+        base, 0, device="cpu")[1]["params"].values())
+    metrics["params"] = n_params
+    metrics["table_bytes"] = 4 * n_params
+    # warm-up: the convolutions' first calls at this shape and dtype
+    warm = asgd_plain_row(resnet, device, base, X[:4 * batch], y[:4 * batch],
+                          epochs=1, batch=batch)
+    metrics["warmup_s"] = warm["s_per_epoch"]
+    rows = {"1_no_ps": asgd_plain_row(resnet, device, base, X, y, batch=batch),
+            "2_ps_1_worker": asgd_row(mvt, resnet, device, base, X, y, 1,
+                                      batch=batch)}
+    asgd = resnet.ResNetConfig(depth=depth, width=width, lr=0.02, momentum=0.5)
+    ckpt = os.path.join(scratch, "asgd")
+
+    def snapshot(trainer, state):
+        CheckpointDriver([trainer.manager.table], ckpt).snapshot()
+        return {"_trained": {k: v.clone() for k, v in state["params"].items()}}
+
+    rows["3_asgd_4_workers"] = asgd_row(mvt, resnet, device, asgd, X, y,
+                                        WORKERS, epochs=ASGD_ROW3_EPOCHS,
+                                        batch=batch, hold=snapshot)
+    rows["4_asgd_4_workers_pipelined"] = asgd_row(
+        mvt, resnet, device, asgd, X, y, WORKERS, pipeline=True,
+        batch=batch)
+    r1, r2, r3 = rows["1_no_ps"], rows["2_ps_1_worker"], rows["3_asgd_4_workers"]
+    metrics["ps_overhead_pct"] = 100.0 * (r2["s_per_epoch"] - r1["s_per_epoch"]) \
+        / r1["s_per_epoch"]
+    for name, r in (("1", r1), ("2", r2)):
+        if not r["accuracy"] >= row12_bar:
+            raise AssertionError(f"ASGD row {name}: accuracy {r['accuracy']} "
+                                 f"under the bar {row12_bar}")
+    if not abs(r2["accuracy"] - r1["accuracy"]) <= ASGD_ROW12_GAP:
+        raise AssertionError(f"ASGD: row 2 (the PS path) {r2['accuracy']} "
+                             f"against row 1 {r1['accuracy']}")
+    if not r3["accuracy"] >= learn_bar:
+        raise AssertionError(f"ASGD row 3: accuracy {r3['accuracy']} under "
+                             f"the bar {learn_bar}")
+    # the checkpoint of row 3's table, restored into a fresh world
+    trained = r3.pop("_trained")
+    mvt.init(local_workers=1, device=device)
+    try:
+        pm = PytreeParamManager({k: torch.zeros_like(v) for k, v in trained.items()})
+        if not CheckpointDriver([pm.table], ckpt).restore():
+            raise AssertionError("ASGD checkpoint: nothing restored")
+        restored = pm.worker_view(device=True).params
+        for k, v in trained.items():
+            if not torch.equal(restored[k], v):
+                raise AssertionError(f"ASGD checkpoint: {k} differs")
+    finally:
+        stop_runtime(mvt)
+    metrics["checkpoint"] = "restored bitwise"
+    metrics["bsp"] = asgd_bsp(mvt, resnet, device, X, y, check_depth, width,
+                              batch)
+    shapes = [tuple(p.shape) for _, p in sorted(resnet.init_resnet(
+        base, 0, device="cpu")[1]["params"].items())]
+    metrics["aggregate"] = asgd_aggregate(mvt, device, shapes)
+    if profiled:
+        # the card's idle share while 4 workers train (one epoch of row
+        # 3's configuration, traced)
+        mvt.init(local_workers=WORKERS, device=device)
+        try:
+            trainer = resnet.ASGDTrainer(asgd, workers=WORKERS,
+                                         sync_freq=1, input_shape=X.shape[1:])
+            prof = profile(lambda: (trainer.train(X, y, epochs=1, batch=batch,
+                                                  timeout=JOIN_S),
+                                    sync_device(device)))
+        finally:
+            stop_runtime(mvt)
+        busy = prof["device_busy_ms"]
+        prof["idle_share"] = (1.0 - busy / prof["wall_ms"]
+                              if isinstance(busy, float) else "not measured")
+        metrics["row3_profile"] = prof
+    metrics["rows"] = rows
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    return metrics
+
+
 KERNELS = {
     "scatter_add_rows":"multiverso_tpu/ops/pallas_rows.py:172",
     "gather_rows": "multiverso_tpu/ops/pallas_rows.py:107",
@@ -2436,7 +2910,11 @@ def smoke(args, scratch: str) -> int:
           f"over the phase (its table fills): {json.dumps(query_launches)}",
           flush=True)
 
-    # 13. the kernel line, then the verdict
+    # 13. model-averaging ASGD: ResNet-32 through one array table
+    asgd = asgd_phase(mvt, "cuda", scratch)
+    print(f"ASGD ResNet-32 on {card}: {json.dumps(asgd)}", flush=True)
+
+    # 14. the kernel line, then the verdict
     table = []
     for k, where in KERNELS.items():
         r = results[k]

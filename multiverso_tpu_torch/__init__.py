@@ -16,6 +16,7 @@ Public surface (MV_* parity, the part ported so far):
     create_table("array" | "matrix" | "kv" | "sparse" | "tiered_sparse"
                  | "tiered_kv") / register_table_type
     worker(slot)                   (bind a logical worker context to a thread)
+    aggregate                      (MV_Aggregate: a sum across worker contexts)
     query                          (server-side top-k retrieval pushdown)
 
 ``create_table("kv", dtype, capacity=N)`` puts the KV table's keys and
@@ -134,6 +135,20 @@ def worker(local_slot: int) -> Iterator[int]:
         yield zoo.rank * zoo.local_workers + local_slot
     finally:
         zoo.bind_worker(0)
+
+
+# -- collectives (MV_Aggregate) ---------------------------------------------
+
+def aggregate(data: Any) -> Any:
+    """Elementwise sum of ``data`` across every local worker context; every
+    caller gets its own copy of the sum (in-place-sum semantics of
+    ``MV_Aggregate``).
+
+    Host inputs (numpy arrays, or lists of them: a model's leaves) sum on
+    the host. Device inputs (a tensor or a list of them) sum on their
+    device, in slot order, and each worker gets its own buffers. Mixing
+    host and device values across workers in one round is fatal."""
+    return Zoo.instance().aggregate(data)
 
 
 # Bind the retrieval subpackage NOW so the front door below wins the

@@ -17,6 +17,14 @@ device KV table's with :func:`load_device_kv_state` (by replay: the JAX
 table spreads its hash over 8 shards, the port's over one, so slot arrays
 do not carry over). A tiered table crosses through its snapshot bytes
 (:func:`load_snapshot`), which are the plain sparse or KV format.
+The CIFAR ResNet crosses with :func:`resnet_variables` (a flax model's
+``variables`` into the port's name -> tensor dicts), and its ASGD table with
+:func:`resnet_table_from_jax` / :func:`resnet_table_to_jax`: the JAX table
+holds the flax leaves in ``jax.tree_util`` order (dict keys sorted, so
+``BasicBlock_10`` precedes ``BasicBlock_2``) with HWIO convolution kernels
+and (in, out) dense kernels; the port's holds its parameter names sorted,
+in torch's OIHW and (out, in) layouts. The carry is a permutation plus a
+transpose per leaf.
 Nothing here imports the JAX package: the caller hands over plain arrays.
 A checkpoint file (``checkpoint.py``) is the second way across: the JAX
 package's ``store_table`` writes the same state, and the port's
@@ -25,7 +33,7 @@ package's ``store_table`` writes the same state, and the port's
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -229,3 +237,115 @@ def load_logreg_weights(model, w: np.ndarray) -> None:
                         "table state; use load_sparse_state / load_ftrl_state")
     load_state(model.table, w.reshape(-1), {})
     model.finish()
+
+
+def _resnet_leaves(config) -> List[Tuple[str, tuple, tuple, tuple]]:
+    """``(port name, port shape, flax path, axes)`` of every ResNet
+    parameter and BatchNorm statistic, in the port's module order; the
+    flax leaf is the port leaf transposed by ``axes`` (None: as it is)."""
+    from multiverso_tpu_torch.models.resnet import CifarResNet
+    norm = "BatchNorm" if config.norm == "batch" else "GroupNorm"
+    with torch.device("meta"):
+        model = CifarResNet(config)
+    named = list(model.named_parameters()) + list(model.named_buffers())
+    out = []
+    for name, t in named:
+        *mods, leaf = name.split(".")
+        if mods[0] == "blocks":
+            prefix = (f"BasicBlock_{mods[1]}",)
+            mod = {"conv1": "Conv_0", "conv2": "Conv_1", "norm1": f"{norm}_0",
+                   "norm2": f"{norm}_1"}[mods[2]]
+        else:
+            prefix = ()
+            mod = {"conv": "Conv_0", "norm": f"{norm}_0", "fc": "Dense_0"}[mods[0]]
+        axes = None
+        if leaf == "weight" and t.dim() == 4:      # OIHW <- HWIO
+            leaf, axes = "kernel", (2, 3, 1, 0)
+        elif leaf == "weight" and t.dim() == 2:    # (out, in) <- (in, out)
+            leaf, axes = "kernel", (1, 0)
+        elif leaf == "weight":
+            leaf = "scale"
+        out.append((name, tuple(t.shape), prefix + (mod, leaf), axes))
+    return out
+
+
+def _flax_leaf(tree: Mapping, path: tuple) -> np.ndarray:
+    for key in path:
+        tree = tree[key]
+    return np.asarray(tree)
+
+
+def resnet_variables(flax_variables: Mapping, config,
+                     device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """A flax ``CifarResNet``'s ``variables`` (``params``, and
+    ``batch_stats`` for norm="batch", as nested dicts of numpy arrays) as
+    the port's ``variables`` on ``device`` (``cuda`` unless the CPU is
+    asked for): dicts of name -> float32 tensor for
+    ``models.resnet.CifarResNet`` built from the same ``config``."""
+    device = mesh_lib.build_device(str(device))
+    out: Dict[str, Dict[str, torch.Tensor]] = {"params": {}}
+    if config.norm == "batch":
+        out["batch_stats"] = {}
+    for name, shape, path, axes in _resnet_leaves(config):
+        stats = path[-1] in ("mean", "var")
+        arr = _flax_leaf(flax_variables["batch_stats" if stats else "params"],
+                         path)
+        if axes is not None:
+            arr = arr.transpose(np.argsort(axes))
+        if arr.shape != shape:
+            raise ValueError(f"resnet_variables: {'/'.join(path)} has shape "
+                             f"{arr.shape}, the port's {name} {shape}")
+        out["batch_stats" if stats else "params"][name] = torch.from_numpy(
+            np.array(arr, np.float32)).to(device)
+    return out
+
+
+def _resnet_orders(config):
+    """The parameters as ``(name, port shape, flax shape, axes)`` in the
+    port table's order, and a permutation giving the JAX table's order."""
+    leaves = [(name, shape, path, axes) for name, shape, path, axes
+              in _resnet_leaves(config) if path[-1] not in ("mean", "var")]
+    port = sorted(leaves, key=lambda e: e[0])
+    jax_order = sorted(range(len(port)), key=lambda i: port[i][2])
+    rows = [(name, shape, shape if axes is None else
+             tuple(shape[a] for a in axes), axes)
+            for name, shape, _, axes in port]
+    return rows, jax_order
+
+
+def resnet_table_from_jax(flat: np.ndarray, config) -> np.ndarray:
+    """The JAX ASGD table's flat vector (``PytreeParamManager`` over a flax
+    ResNet's ``params``) in the port table's order and layouts: restore a
+    JAX ResNet checkpoint's array, then :func:`load_state` this into the
+    port trainer's ``manager.table``."""
+    rows, jax_order = _resnet_orders(config)
+    flat = np.asarray(flat, np.float32).reshape(-1)
+    parts: List[Optional[np.ndarray]] = [None] * len(rows)
+    n = 0
+    for i in jax_order:
+        _, shape, fshape, axes = rows[i]
+        size = int(np.prod(fshape))
+        leaf = flat[n:n + size].reshape(fshape)
+        parts[i] = leaf if axes is None else leaf.transpose(np.argsort(axes))
+        n += size
+    if n != flat.size:
+        raise ValueError(f"resnet_table_from_jax: {flat.size} values, the "
+                         f"config's parameters are {n}")
+    return np.concatenate([p.reshape(-1) for p in parts])
+
+
+def resnet_table_to_jax(flat: np.ndarray, config) -> np.ndarray:
+    """The inverse of :func:`resnet_table_from_jax`: the port's ASGD table
+    as the JAX package's ``PytreeParamManager`` lays it out."""
+    rows, jax_order = _resnet_orders(config)
+    flat = np.asarray(flat, np.float32).reshape(-1)
+    parts, n = [], 0
+    for _, shape, _, axes in rows:
+        size = int(np.prod(shape))
+        leaf = flat[n:n + size].reshape(shape)
+        parts.append(leaf if axes is None else leaf.transpose(axes))
+        n += size
+    if n != flat.size:
+        raise ValueError(f"resnet_table_to_jax: {flat.size} values, the "
+                         f"config's parameters are {n}")
+    return np.concatenate([parts[i].reshape(-1) for i in jax_order])

@@ -7,15 +7,24 @@ are arithmetic (:meth:`Zoo._assign_ids`). A process hosts
 ``local_workers`` worker contexts (threads); the one device is the one
 server shard.
 
-Not yet ported: the multi-process lockstep runtime and ``aggregate``.
+``aggregate`` (``MV_Aggregate``) sums a value across the local worker
+contexts: numpy arrays and lists of them on the host, tensors and lists of
+them on their device. The slots are summed in slot order (the JAX package
+sums in the order the threads arrived), and each worker gets its own copy
+of a device result (JAX arrays are immutable and shared there; a torch
+tensor handed to four workers would be mutated under the other three).
+
+Not yet ported: the multi-process lockstep runtime, and with it
+``aggregate``'s cross-process leg.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from multiverso_tpu_torch import config, log
@@ -24,6 +33,40 @@ from multiverso_tpu_torch.runtime.node import Node, Role
 from multiverso_tpu_torch.runtime.server import Server, make_server
 
 _thread_local = threading.local()
+
+
+def _is_device_value(v: Any) -> bool:
+    """A tensor, or a non-empty list/tuple of them (a model's leaves): the
+    aggregate device path's input shape."""
+    return isinstance(v, torch.Tensor) or (
+        isinstance(v, (list, tuple)) and bool(v)
+        and all(isinstance(x, torch.Tensor) for x in v))
+
+
+def _host_leaf_sum(values):
+    """Per-leaf numpy sums across workers' leaf lists."""
+    return [np.asarray(np.sum([np.asarray(v[i]) for v in values], axis=0))
+            for i in range(len(values[0]))]
+
+
+def _device_sum(values):
+    """Slot-ordered sum on the values' device: one tensor, or per leaf of
+    matching lists of tensors. The result is a fresh tensor set."""
+    def total(xs):
+        out = xs[0].clone()
+        for x in xs[1:]:
+            out.add_(x)
+        return out
+
+    if isinstance(values[0], torch.Tensor):
+        return total(values)
+    return [total(xs) for xs in zip(*values)]
+
+
+def _copy_device(result):
+    if isinstance(result, torch.Tensor):
+        return result.clone()
+    return [x.clone() for x in result]
 
 
 class Zoo:
@@ -41,6 +84,9 @@ class Zoo:
         self._remote_workers = 0
         self._barrier: Optional[threading.Barrier] = None
         self._worker_tables: List[Any] = []
+        self._agg_lock = threading.Lock()
+        self._agg_slots: Dict[int, Any] = {}
+        self._agg_result: Any = None
 
     # -- singleton ---------------------------------------------------------
     @classmethod
@@ -185,3 +231,89 @@ class Zoo:
         table_id = self.server.register_table(server_table)
         self._worker_tables.append(worker_table)
         return table_id
+
+    # -- aggregate (model averaging) ----------------------------------------
+    def aggregate(self, data: Any) -> Any:
+        """In-place-sum semantics of ``MV_Aggregate``: returns the
+        elementwise sum of ``data`` across every local worker context.
+
+        Host inputs (numpy arrays, or lists of them: a model's leaves) sum
+        on the host and every worker gets its own copy. Device inputs (a
+        tensor or a list of them) sum on their device and every worker
+        gets its own copy there. Mixing host and device values across
+        workers in one round is fatal."""
+        if self.size > 1:
+            log.fatal("aggregate across processes is not ported (it comes "
+                      "with the multi-process runtime); this world has %d "
+                      "processes", self.size)
+        if _is_device_value(data):
+            return self._aggregate_slots(data, _device_sum, _copy_device)
+        if (isinstance(data, (list, tuple)) and data
+                and all(isinstance(x, np.ndarray) for x in data)):
+            # host leaf list: per-leaf sums; scalar lists keep the classic
+            # array semantics below. Conversion happens in the reducer,
+            # inside the barrier-abort guard: a ragged value must fail
+            # loudly, not wedge peers before they deposit
+            return self._aggregate_slots(
+                data, _host_leaf_sum,
+                lambda r: [np.array(x, copy=True) for x in r])
+        return self._aggregate_slots(
+            data,
+            lambda values: np.asarray(
+                np.sum([np.asarray(v) for v in values], axis=0)),
+            lambda r: np.array(r, copy=True))
+
+    def _aggregate_slots(self, data: Any, reduce_fn, copy) -> Any:
+        """Barrier exchange shared by the host and device paths: each
+        worker deposits its slot's value, slot 0 reduces them in slot
+        order into a fresh result and keeps it; every other worker takes a
+        copy. Leaf lists of different lengths fail loudly (inside the
+        barrier-abort guard) instead of silently dropping trailing
+        leaves."""
+        # Key by the calling thread's BOUND slot, not current_worker_id():
+        # on a ps_role=server node the worker id is -1 for every thread.
+        slot = getattr(_thread_local, "worker_slot", None)
+        if slot is None and self._local_workers > 1:
+            log.fatal("aggregate: bind a worker slot (mvt.worker(i)) before "
+                      "aggregating with local_workers=%d — an unbound thread "
+                      "cannot be distinguished from slot 0",
+                      self._local_workers)
+        slot = slot or 0
+        gated = self._barrier is not None and self._local_workers > 1
+        with self._agg_lock:
+            self._agg_slots[slot] = data
+        if gated:
+            self._barrier.wait()
+        reducer = slot == 0 or not gated
+        if reducer:
+            try:
+                with self._agg_lock:
+                    values = [self._agg_slots[s] for s in sorted(self._agg_slots)]
+                    self._agg_slots.clear()
+                if len({_is_device_value(v) for v in values}) > 1:
+                    log.fatal("aggregate: workers mixed host and device "
+                              "values in one round")
+                lengths = {len(v) for v in values
+                           if isinstance(v, (list, tuple))}
+                if len(lengths) > 1:
+                    log.fatal("aggregate: workers deposited leaf lists of "
+                              "different lengths (%s)", sorted(lengths))
+                self._agg_result = reduce_fn(values)
+            except BaseException:
+                # release peers (they see BrokenBarrierError) instead of
+                # wedging them on a barrier slot 0 will never reach
+                if self._barrier is not None:
+                    self._barrier.abort()
+                raise
+        if gated:
+            self._barrier.wait()
+        # the reducer's result is fresh; the others copy it before the
+        # reducer returns it past the last barrier
+        result = self._agg_result if reducer else copy(self._agg_result)
+        if gated:
+            self._barrier.wait()
+        if reducer:
+            # every worker took its copy between the barriers: drop the
+            # shared result so it does not stay resident until the next round
+            self._agg_result = None
+        return result

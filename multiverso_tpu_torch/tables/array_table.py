@@ -11,13 +11,26 @@ Checkpoints (``store``/``load``) write the data and the updater states at
 the logical size, in the JAX package's format; ``load`` writes into the
 existing tensors.
 
-Not yet ported: the leaf-list model-sync forms (``sync_leaves_async``,
-``push_leaves_async``, ``get_leaves_async``) and live migration.
+Whole-model sync (``ext/``'s device views): the leaf-list methods take a
+model as a list of tensors whose sizes total the table's. Per leaf
+signature the server keeps a codec: flatten (one ``torch.cat``) and split
+(views of one flat tensor). The worker side does both, on its own thread:
+a request carries flat tensors, a reply comes back flat and is split into
+a :class:`LeafList`, so the dispatcher's share of a sync is a delta, the
+update and two clones. The worker snapshots the caller's leaves into a
+fresh flat tensor before it submits, because torch trains in place: a
+queued request that held the caller's tensors would read whatever the next
+step wrote into them (a deferred apply under the deterministic or BSP
+server, a pipelined sync in flight). Every reply is a fresh tensor set,
+distinct from the table and from each other.
+
+Not yet ported: live migration.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +70,20 @@ def _make_states(updater: Updater, shape, dtype: torch.dtype, num_workers: int,
             for name, (suffix, sdtype) in updater.state_spec(shape, dtype).items()}
 
 
+class LeafList(list):
+    """A model's leaves as views of ONE flat tensor, ``flat`` (padded to the
+    table's padded size): what the leaf requests reply. Handed back as a
+    baseline, ``flat`` goes out as it is; :meth:`clone` copies the whole
+    set with one copy."""
+
+    def __init__(self, flat: torch.Tensor, split: Callable) -> None:
+        super().__init__(split(flat))
+        self.flat, self._split = flat, split
+
+    def clone(self) -> "LeafList":
+        return LeafList(self.flat.clone(), self._split)
+
+
 class ArrayServer(ServerTable):
     def __init__(self, size: int, dtype: Any = np.float32,
                  updater_type: str = "", num_workers: Optional[int] = None,
@@ -77,13 +104,16 @@ class ArrayServer(ServerTable):
                                    self.torch_dtype, self.num_workers,
                                    self.device)
         self._update = _make_whole_update(self.updater)
+        # leaf signature -> (flatten, split), see leaf_codec
+        self._codecs: Dict[tuple, Tuple[Callable, Callable]] = {}
 
     # -- server ops --------------------------------------------------------
     def merge_add_requests(self, requests):
         """Whole-array host deltas sum into ONE update — linear updaters
         only (a stateful updater applied once to a summed delta is a
         different operator than N sequential applies). The fused add+get
-        form (3-tuple) and device-resident deltas refuse."""
+        form (3-tuple), the leaf-list forms and device-resident deltas
+        refuse: their replies or payloads are per request."""
         if type(self.updater) not in (Updater, SGDUpdater):
             return None
         total = None
@@ -104,10 +134,66 @@ class ArrayServer(ServerTable):
             return None
         return (total, requests[0][1]), int(total.size), consumed
 
-    def process_add(self, request) -> Optional[torch.Tensor]:
-        if isinstance(request[0], str):
-            log.fatal("ArrayTable: the %r request form is not yet ported",
-                      request[0])
+    def leaf_codec(self, leaves) -> Tuple[tuple, Callable, Callable]:
+        """``(key, flatten, split)`` for a list-of-tensors signature.
+        ``flatten`` casts each leaf to the table's dtype and device and
+        returns ONE fresh flat tensor, padded to the table's padded size;
+        ``split`` cuts a flat tensor's first ``size`` values into views of
+        the leaves' shapes (cast back where a leaf's dtype differs). The
+        worker side flattens and splits (``ArrayWorker``), so the
+        dispatcher's share of a whole-model sync is a handful of tensor
+        ops. A racing duplicate build is harmless."""
+        key = tuple((tuple(x.shape), x.dtype) for x in leaves)
+        codec = self._codecs.get(key)
+        if codec is not None:
+            return (key,) + codec
+        shapes = [shape for shape, _ in key]
+        dtypes = [dtype for _, dtype in key]
+        sizes = [math.prod(shape) for shape in shapes]
+        if sum(sizes) != self.size:
+            log.fatal("leaf signature totals %d, table size %d",
+                      sum(sizes), self.size)
+        device, dtype, pad = self.device, self.torch_dtype, self.padded - self.size
+
+        def flatten(ls) -> torch.Tensor:
+            parts = [x.detach().reshape(-1).to(device, dtype) for x in ls]
+            if pad or not parts:
+                parts.append(torch.zeros(pad, dtype=dtype, device=device))
+            return torch.cat(parts)
+
+        def split(flat: torch.Tensor) -> List[torch.Tensor]:
+            return [x.view(shape) if dt == dtype else x.view(shape).to(dt)
+                    for x, shape, dt in zip(
+                        torch.split(flat[: self.size], sizes), shapes, dtypes)]
+
+        self._codecs[key] = (flatten, split)
+        return key, flatten, split
+
+    def process_add(self, request) -> Any:
+        kind = request[0] if isinstance(request[0], str) else None
+        if kind is not None:
+            # whole-model requests, their tensors flat and padded:
+            # ("leaves", delta, option, key) replies the merged value;
+            # ("leaves_sync", new, last, option, key) applies new - last
+            # and replies (merged, baseline), two distinct tensors (the
+            # caller trains on merged in place and keeps baseline for its
+            # next delta); ("leaves_push", new, last, option, key) applies
+            # new - last and replies None (round-gated and deferred
+            # servers: the caller follows with a gated Get)
+            if kind not in ("leaves", "leaves_sync", "leaves_push"):
+                log.fatal("ArrayTable: unknown request form %r", kind)
+            flats, option = request[1:-2], request[-2]
+            for flat in flats:
+                if flat.numel() != self.padded:
+                    log.fatal("ArrayTable.%s: %d values, table padded size %d",
+                              kind, flat.numel(), self.padded)
+            delta = flats[0] if kind == "leaves" else flats[0] - flats[1]
+            worker, scalars = self._option_consts(option or AddOption())
+            self._update(self.data, self.states, delta, worker, scalars)
+            if kind == "leaves_push":
+                return None
+            merged = self.updater.access(self.data).clone()
+            return merged if kind == "leaves" else (merged, merged.clone())
         want_get = False
         if len(request) == 3:  # fused add+get (device sync path)
             delta, option, want_get = request
@@ -140,6 +226,10 @@ class ArrayServer(ServerTable):
         return self.updater.access(self.data)[: self.size].clone()
 
     def process_get(self, request) -> Any:
+        if isinstance(request, tuple) and isinstance(request[0], str):
+            # ("leaves", option, key): the whole padded value, split into
+            # the leaves on the worker side
+            return self.updater.access(self.data).clone()
         if isinstance(request, tuple):  # in-process device-out form
             _option, device_out = request
             if device_out:
@@ -254,3 +344,68 @@ class ArrayWorker(WorkerTable):
         self._require_device_io()
         option = self._default_option(option)
         return super().add_async((delta, option, True))
+
+    def _flat(self, leaves, flatten, snapshot: bool) -> torch.Tensor:
+        """The leaves as one flat padded tensor on the table's device. A
+        :class:`LeafList` goes out as its own flat tensor, copied when
+        ``snapshot``; other leaves are concatenated (a fresh tensor)."""
+        flat = getattr(leaves, "flat", None)
+        if flat is None:
+            return flatten(leaves)
+        return flat.clone() if snapshot else flat
+
+    def sync_leaves_async(self, delta_leaves: list,
+                          option: Optional[AddOption] = None,
+                          last_leaves: Optional[list] = None) -> int:
+        """Fused whole-model sync in the caller's own leaf shapes: ONE
+        dispatcher hop whose reply is the merged value as a fresh
+        :class:`LeafList` on the table's device. The leaf sizes must total
+        the table size. Deferred-apply servers reply None; fall back to
+        :meth:`get_leaves_async`.
+
+        With ``last_leaves``, ``delta_leaves`` is instead the NEW value:
+        the server computes ``new - last`` and replies ``(merged,
+        baseline)``, two distinct tensor sets. ``delta_leaves`` is
+        snapshotted before this returns; ``last_leaves`` is read on the
+        dispatcher, so the caller must not mutate it until the reply."""
+        self._require_device_io()
+        option = self._default_option(option)
+        key, flatten, _ = self._server_table.leaf_codec(delta_leaves)
+        new = self._flat(delta_leaves, flatten, snapshot=True)
+        if last_leaves is not None:
+            last = self._flat(last_leaves, flatten, snapshot=False)
+            return super().add_async(("leaves_sync", new, last, option, key))
+        return super().add_async(("leaves", new, option, key))
+
+    def push_leaves_async(self, new_leaves: list, last_leaves: list,
+                          option: Optional[AddOption] = None) -> int:
+        """Reply-free pair push: the server applies ``new - last`` and
+        replies None. For round-gated and deferred servers, where a fused
+        reply would be discarded anyway: follow with a (gated)
+        :meth:`get_leaves_async`. ``new_leaves`` is snapshotted before this
+        returns; ``last_leaves`` must stay unmutated until the apply."""
+        self._require_device_io()
+        option = self._default_option(option)
+        key, flatten, _ = self._server_table.leaf_codec(new_leaves)
+        return super().add_async((
+            "leaves_push", self._flat(new_leaves, flatten, snapshot=True),
+            self._flat(last_leaves, flatten, snapshot=False), option, key))
+
+    def get_leaves_async(self, template_leaves: list,
+                         option: Optional[GetOption] = None) -> int:
+        """Device Get shaped like ``template_leaves`` (only their shapes and
+        dtypes are read; meta tensors do): a fresh :class:`LeafList` on
+        the table's device."""
+        self._require_device_io()
+        key, _, _ = self._server_table.leaf_codec(template_leaves)
+        return super().get_async(("leaves", option, key))
+
+    def process_reply_get(self, raw: Any, request: Any) -> Any:
+        """Leaf requests reply flat tensors; they are split into the
+        leaves here, on the caller's thread."""
+        if isinstance(request, tuple) and request and isinstance(request[0], str):
+            _, split = self._server_table._codecs[request[-1]]
+            if isinstance(raw, tuple):
+                return tuple(LeafList(flat, split) for flat in raw)
+            return LeafList(raw, split)
+        return raw

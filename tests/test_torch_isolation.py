@@ -15,8 +15,11 @@ import multiverso_tpu_torch as mvt
 from multiverso_tpu_torch.config import FLAGS as TORCH_FLAGS
 
 REPO = Path(__file__).resolve().parent.parent
+# the package, its example scripts (multiverso_tpu_torch/examples) and the
+# scripts beside it
 PORT_FILES = sorted((REPO / "multiverso_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "rows_variants.py"]
+    REPO / "chip_smoke.py", REPO / "rows_variants.py", REPO / "asgd_probe.py"]
+EXAMPLES = ("resnet_asgd.py", "torch_asgd.py", "asgd_param_manager.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -46,7 +49,11 @@ def test_import_pulls_in_no_jax():
             "multiverso_tpu_torch.query", "multiverso_tpu_torch.query.engine",
             "multiverso_tpu_torch.utils.quantization",
             "multiverso_tpu_torch.runtime.contracts",
-            "multiverso_tpu_torch.obs.profiler"} <= set(loaded)
+            "multiverso_tpu_torch.obs.profiler",
+            "multiverso_tpu_torch.ext", "multiverso_tpu_torch.ext.param_manager",
+            "multiverso_tpu_torch.ext.sharedvar",
+            "multiverso_tpu_torch.ext.callbacks",
+            "multiverso_tpu_torch.models.resnet"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -61,6 +68,11 @@ def test_source_imports_no_jax(path):
             if _forbidden(node.module):
                 found.append(node.module)
     assert found == []
+
+
+def test_example_twins_are_checked():
+    checked = {p.name for p in PORT_FILES if p.parent.name == "examples"}
+    assert set(EXAMPLES) <= checked
 
 
 def test_init_needs_the_card_unless_cpu_is_asked_for():
