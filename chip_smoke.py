@@ -103,7 +103,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    trip equal to a numpy mirror exactly; Add and Get keys/s, rebuilds,
    capacity and bytes, the operators and kernels of one ``hash_add``.
 12. The query plane through ``mvt.query``/``table.query``: a 1M x 50
-   matrix (16 vectors, k = 16, dot and cosine, behind queued Adds), a
+   matrix (16 vectors, k = 16, dot and cosine, after 8 acknowledged
+   1024-row Adds: a query drained with queued Adds is answered before
+   them, as the JAX dispatcher's priority lanes do), a
    word2vec ``w_in`` (100,001 x 128, 10 nearest by cosine), an integer
    grid with exact ties across the k boundary, a sparse table of 200,000
    rows of width 8, and a tiered sparse table of 600,000 keys x 8 at 10x
@@ -131,7 +133,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    each worker's device result its own buffers (ms a call). No row
    kernel runs here: the array table's update and the model are torch
    operators, as they are XLA in the JAX package.
-14. The run's seconds, one JSON line listing every kernel, then the last line
+14. Serving over the wire: the tables stay in this process on the card and
+   ``mvt.serve`` answers client processes (this script with ``--client``,
+   fresh interpreters; they import no JAX and, but for leg 5, touch no
+   card). Leg 1: the PS phase's three tables (1M x 50 default and AdaGrad
+   matrices, the array table) and 4 clients of 128 rounds over TCP (a
+   1024-row Add and Get, an AdaGrad Add, an array Add): adds/s, Add and
+   Get p50/p99 µs, every table against a host mirror of every Add (rtol
+   and atol 1e-5), the stats RPC's ``SERVER_PROCESS_ADD_MSG`` accounting
+   for every Add sent, the scatter and the gather launched in this
+   process. Leg 2: ``bench.py``'s apply path (65,536 x 128, 1024-row
+   Adds, 400 Adds from 4 producer threads, a window of 32) over shm with
+   ``apply_batch_msgs`` 64 and 0 and over TCP with 64: GB/s, adds/s,
+   ``APPLY_BATCH_ROWS`` p50, fused calls (> 0 exactly on the fused legs),
+   each table bitwise equal to its mirror. Leg 3: BSP over the wire, 2
+   clients and 8 rounds, every Get bitwise equal to the mirror after
+   exactly that round; then a third client killed with SIGKILL after its
+   5th Add, the survivors going on once its 2 s lease expires
+   (``WORKER_EVICTIONS`` 1, a flight dump naming the worker). Leg 4,
+   integer-valued deltas, each table bitwise equal to the mirror of the
+   acknowledged Adds: Add replies dropped (``drop:type=Reply_Add,every=7``,
+   retransmits through the dedup window), backlog shedding
+   (``admission_queue_limit`` 32), deadlines (20 ms); a planted double
+   apply and a planted shed apply must each break the equality. Leg 5:
+   ``PSTrainer`` on remote proxies of word2vec's tables at the bench
+   recipe's width, its step on the card in the client's process: one
+   block against the same block stepped on the CPU by a second client
+   (``W2V_RTOL``, ``W2V_ATOL``), then 16 blocks timed (words/s); the
+   scatter and the gather launched in this process.
+15. The run's seconds, one JSON line listing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
@@ -142,6 +172,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import queue
 import subprocess
 import sys
 import tempfile
@@ -2163,7 +2194,7 @@ def query_phase(mvt, rows, device: str, card: str, scratch: str,
                 tiered_keys: int = 600_000, calls: int = 20):
     """``table.query`` / ``mvt.query`` through the dispatcher on (a) a
     1M x 50 matrix (16 query vectors, k = 16, bench.py:1466) under dot
-    and cosine, right behind a burst of row Adds it must see; (b) a
+    and cosine, after a burst of acknowledged row Adds it must see; (b) a
     word2vec ``w_in`` (100,001 x 128) for each probe word's 10 nearest by
     cosine; (c) an integer grid with exact ties across the k boundary;
     (d) a sparse table of 200,000 live rows of width 8; (e) one pass over
@@ -2181,7 +2212,8 @@ def query_phase(mvt, rows, device: str, card: str, scratch: str,
     mvt.init(device=device)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        # (a) the PS shape, queried behind 8 queued 1024-row Adds
+        # (a) the PS shape, queried after 8 acknowledged 1024-row Adds (a
+        # query drained with queued Adds is answered before them: lanes)
         table = mvt.create_table("matrix", num_row, num_col, np.float32,
                                  init_range=(-1.0, 1.0), seed=7)
         data = table.get()
@@ -2191,14 +2223,14 @@ def query_phase(mvt, rows, device: str, card: str, scratch: str,
             vals = rng.standard_normal((BATCH, num_col), dtype=np.float32)
             data[ids] += vals
             handles.append(table.add_async(vals, row_ids=ids))
+        for h in handles:
+            table.wait(h)
         vecs = rng.standard_normal((n_q, num_col), dtype=np.float32)
         ids_all = np.arange(num_row)
         for metric in ("dot", "cosine"):
             got = mvt.query(table, vecs, k, metric)
             check_topk(got, topk_oracle(ids_all, data, vecs, k, metric), k,
                        False, f"matrix {metric}")
-        for h in handles:
-            table.wait(h)
         for metric in ("dot", "cosine"):
             got, v, lat = timed_queries(
                 table, lambda i: rng.standard_normal((n_q, num_col),
@@ -2749,6 +2781,824 @@ def asgd_phase(mvt, device: str, scratch: str, depth: int = 32,
     return metrics
 
 
+# -- 14. serving over the wire -------------------------------------------------
+# The tables stay in this process, on the card; each client is a fresh
+# interpreter running this script with --client (bench.py's _apply_child
+# pattern turned around: the server is ours, the clients are children).
+
+SERVE_CLIENTS = 4                 # client processes of the PS and overload legs
+SERVE_ROUNDS = 128                # 1024-row rounds per PS client
+# bench.py bench_apply_path: 65,536 x 128 fp32, 1024-row Adds, 400 Adds
+# from 4 producer threads with a window of 32 async Adds each
+APPLY_ROWS, APPLY_COLS = 65_536, 128
+APPLY_ADDS, APPLY_PRODUCERS, APPLY_WINDOW = 400, 4, 32
+APPLY_SETS = 8                    # unique-id batches in rotation
+BSP_WIRE_ROUNDS = 8
+BSP_VICTIM_ADDS = 5               # the killed client's Adds: 4 rounds + 1
+LEASE_S = 2.0
+ONCE_ADDS, ONCE_WINDOW = 64, 32   # per client in the exactly-once legs
+# leg 4's overload cases: a backlog limit of a quarter of the 128 Adds in
+# flight, and a deadline of about ten served Adds, so that a share of the
+# Adds is acknowledged and a share refused
+ONCE_QUEUE_LIMIT, ONCE_DEADLINE_S = 32, 0.02
+W2V_WIRE_BLOCKS = 16              # timed 8192-token blocks over the wire
+CLIENT_S = 300                    # a client process's limit
+
+
+class Client:
+    """One client process (``chip_smoke.py --client``): it runs the jobs it
+    is sent, one JSON line each, until ``EXIT``. Its stdout lines queue up
+    for :meth:`expect`; its stderr goes to a file whose tail a failure
+    quotes."""
+
+    def __init__(self, scratch: str, n: int) -> None:
+        self.name = f"client{n}"
+        self.killed = False
+        self.err_path = os.path.join(scratch, f"{self.name}.err")
+        self._err = open(self.err_path, "w")
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--client"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._err,
+            text=True, cwd=here)
+        self._lines: "queue.Queue" = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self._lines.put(line.rstrip("\n"))
+        self._lines.put(None)
+
+    def _tail(self) -> str:
+        self._err.flush()
+        with open(self.err_path) as f:
+            return "".join(f.readlines()[-15:])
+
+    def expect(self, prefix: str, timeout: float = CLIENT_S) -> str:
+        """The rest of the first line starting with ``prefix``; other lines
+        pass through to this script's output."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self._lines.get(
+                    timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise TimeoutError(f"{self.name}: no {prefix!r} line in "
+                                   f"{timeout} s\n{self._tail()}") from None
+            if line is None:
+                raise AssertionError(
+                    f"{self.name} ended (code {self.proc.wait()}) before "
+                    f"{prefix!r}\n{self._tail()}")
+            if line.startswith(prefix):
+                return line[len(prefix):].strip()
+            print(f"  {self.name}: {line}", flush=True)
+
+    def send(self, line: str) -> None:
+        self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
+
+    def job(self, spec: dict) -> None:
+        self.send(json.dumps(spec))
+
+    def result(self, timeout: float = CLIENT_S) -> dict:
+        return json.loads(self.expect("RESULT", timeout))
+
+    def kill(self) -> None:
+        """SIGKILL, as a crash."""
+        self.killed = True
+        self.proc.kill()
+        self.proc.wait(timeout=30)
+
+    def close(self) -> None:
+        """EXIT and a zero exit code, or the tail of stderr."""
+        try:
+            if self.proc.poll() is None and not self.killed:
+                self.send("EXIT")
+                code = self.proc.wait(timeout=60)
+                if code != 0:
+                    raise AssertionError(f"{self.name} exited {code}\n"
+                                         f"{self._tail()}")
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+            self._err.close()
+
+
+class ClientPool:
+    """The phase's client processes, started together once (each takes a
+    few seconds to import torch); every one is stopped on the way out."""
+
+    def __init__(self, n: int, scratch: str) -> None:
+        self.procs = [Client(scratch, i) for i in range(n)]
+
+    def __enter__(self) -> "ClientPool":
+        return self
+
+    def take(self, n: int) -> list:
+        if n > len(self.procs):
+            raise AssertionError(f"{n} clients asked for, {len(self.procs)} "
+                                 "alive")
+        return self.procs[:n]
+
+    def drop(self, proc: Client) -> None:
+        proc.kill()
+        self.procs.remove(proc)
+
+    def __exit__(self, *exc) -> None:
+        errors = []
+        for p in self.procs:
+            try:
+                p.close()
+            except BaseException as err:  # stop them all, then report
+                errors.append(err)
+        if errors and exc[0] is None:
+            raise errors[0]
+
+
+def run_jobs(procs, specs, reset=None) -> list:
+    """Send each client its job; when every one has connected (READY),
+    ``reset()`` (zero this process's counters) and GO to all; their
+    results."""
+    for p, spec in zip(procs, specs):
+        p.job(spec)
+    for p in procs:
+        p.expect("READY")
+    if reset is not None:
+        reset()
+    for p in procs:
+        p.send("GO")
+    return [p.result() for p in procs]
+
+
+def wait_go() -> None:
+    print("READY", flush=True)
+    if sys.stdin.readline().strip() != "GO":
+        raise SystemExit("client: no GO from the server")
+
+
+def int_rows(rng, shape) -> np.ndarray:
+    """Integer-valued float32 deltas in [-3, 3]: every float32 sum of a
+    run's Adds is exact, in any order."""
+    return rng.integers(-3, 4, size=shape).astype(np.float32)
+
+
+def ps_round(seed: int, idx: int, k: int, num_row: int, num_col: int,
+             batch: int):
+    """PS client ``idx``'s round ``k``: Add ids (duplicates included), Add
+    values, Get ids."""
+    rng = np.random.default_rng([seed, idx, k])
+    return (rng.integers(0, num_row, batch).astype(np.int32),
+            rng.standard_normal((batch, num_col), dtype=np.float32),
+            rng.integers(0, num_row, batch).astype(np.int32))
+
+
+def bsp_round(seed: int, idx: int, k: int, num_row: int, num_col: int,
+              batch: int):
+    rng = np.random.default_rng([seed, idx, k, 1])
+    return (rng.integers(0, num_row, batch).astype(np.int32),
+            int_rows(rng, (batch, num_col)),
+            rng.integers(0, num_row, batch).astype(np.int32))
+
+
+def once_add(seed: int, idx: int, i: int, num_row: int, num_col: int,
+             batch: int):
+    rng = np.random.default_rng([seed, idx, i, 2])
+    return (rng.integers(0, num_row, batch).astype(np.int32),
+            int_rows(rng, (batch, num_col)))
+
+
+def apply_sets(num_row: int, num_col: int, batch: int):
+    rng = np.random.default_rng(11)
+    return [(rng.choice(num_row, batch, replace=False).astype(np.int32),
+             int_rows(rng, (batch, num_col))) for _ in range(APPLY_SETS)]
+
+
+# -- the client roles (run in the child processes) ---------------------------
+
+def client_ps(mvt, s: dict) -> dict:
+    """Leg 1: ``rounds`` timed rounds of a 1024-row Add and Get on the
+    default matrix, then ``rounds // 4`` Adds to the AdaGrad matrix and the
+    array table, as the in-process PS phase does; client-side latencies
+    and this client's wire monitors."""
+    from multiverso_tpu_torch.dashboard import Dashboard
+    client = mvt.remote_connect(s["endpoint"])
+    mat, ada, arr = client.table(0), client.table(1), client.table(2)
+    opt = mvt.AddOption(worker_id=client.worker_id, learning_rate=0.1, rho=0.1)
+    wait_go()
+    add_us, get_us = [], []
+    start = time.time()
+    for k in range(s["rounds"]):
+        ids, vals, gids = ps_round(s["seed"], s["idx"], k, s["num_row"],
+                                   s["num_col"], s["batch"])
+        t0 = time.perf_counter()
+        mat.add(vals, row_ids=ids)
+        t1 = time.perf_counter()
+        got = mat.get(gids)
+        t2 = time.perf_counter()
+        add_us.append((t1 - t0) * 1e6)
+        get_us.append((t2 - t1) * 1e6)
+        if got.shape != (s["batch"], s["num_col"]) or not np.isfinite(got).all():
+            raise AssertionError(f"bad Get reply {got.shape}")
+    end = time.time()
+    wire_ms = {name: Dashboard.get(name).average_ms
+               for name in ("WIRE_ENCODE", "WIRE_DECODE")}
+    for k in range(s["rounds"] // 4):
+        ids, vals, _ = ps_round(s["seed"], s["idx"], k, s["num_row"],
+                                s["num_col"], s["batch"])
+        ada.add(vals, row_ids=ids, option=opt)
+        arr.add(np.full(s["num_row"], s["idx"] + k, np.float32))
+    client.close()
+    return {"worker_id": client.worker_id, "start": start, "end": end,
+            "add_us": add_us, "get_us": get_us, "client_wire_ms": wire_ms,
+            "adds": s["rounds"] + 2 * (s["rounds"] // 4)}
+
+
+def client_apply(mvt, s: dict) -> dict:
+    """Leg 2: bench_apply_path's producers, integer-valued deltas."""
+    client = mvt.remote_connect(s["endpoint"])
+    table = client.table(0)
+    sets = apply_sets(s["num_row"], s["num_col"], s["batch"])
+    per = s["adds"] // s["producers"]
+    wait_go()
+
+    def push(_slot):
+        handles = []
+        for i in range(per):
+            ids, vals = sets[i % APPLY_SETS]
+            handles.append(table.add_async(vals, row_ids=ids))
+            if len(handles) >= s["window"]:
+                table.wait(handles.pop(0))
+        for h in handles:
+            table.wait(h)
+
+    t0 = time.perf_counter()
+    join_workers(s["producers"], push, timeout=CLIENT_S)
+    dt = time.perf_counter() - t0
+    client.close()
+    n = per * s["producers"]
+    return {"adds": n, "per_producer": per, "seconds": dt,
+            "adds_per_s": n / dt,
+            "gbps": n * s["batch"] * s["num_col"] * 4 / dt / 1e9}
+
+
+def client_bsp(mvt, s: dict) -> dict:
+    """Leg 3: BSP rounds; every Get is held against the mirror after
+    exactly that many rounds of every client (bitwise: integer deltas).
+    The victim stops after its ``adds``-th Add and waits to be killed."""
+    client = mvt.remote_connect(s["endpoint"])
+    table = client.table(0)
+    R, C, B = s["num_row"], s["num_col"], s["batch"]
+    adds = s["adds"]                  # Adds of each client, by idx
+    mirror = np.zeros((R, C), np.float32)
+    wait_go()
+    me = s["idx"]
+    for k in range(adds[me]):
+        ids, vals, gids = bsp_round(s["seed"], me, k, R, C, B)
+        table.add(vals, row_ids=ids)
+        if s.get("victim") and k == adds[me] - 1:
+            print(f"MIDROUND {client.worker_id}", flush=True)
+            time.sleep(CLIENT_S)      # killed here, mid-round
+        got = table.get(gids)
+        for w, n in enumerate(adds):
+            if k < n:
+                w_ids, w_vals, _ = bsp_round(s["seed"], w, k, R, C, B)
+                np.add.at(mirror, w_ids, w_vals)
+        if not np.array_equal(got, mirror[gids]):
+            raise AssertionError(
+                f"BSP round {k + 1}: Get differs from the mirror by "
+                f"{float(np.abs(got - mirror[gids]).max())}")
+    table.finish_train()
+    client.close()
+    return {"worker_id": client.worker_id, "rounds": adds[me]}
+
+
+def client_once(mvt, s: dict) -> dict:
+    """Leg 4: ``adds`` integer-valued Adds with ``window`` in flight. Each
+    is acknowledged, shed (a ``shed: ...`` reply, seen on the wire here) or
+    expired (a ``deadline_exceeded`` failure)."""
+    from multiverso_tpu_torch.runtime import net as net_mod
+    from multiverso_tpu_torch.runtime import wire
+    from multiverso_tpu_torch.runtime.message import MsgType
+    shed_msgs = set()
+    recv = net_mod.TcpNet.recv
+
+    def observed_recv(net):
+        msg = recv(net)
+        if msg is not None and msg.type == MsgType.Reply_Error:
+            text = wire.decode(msg.data)
+            if isinstance(text, str) and text.startswith("shed:"):
+                shed_msgs.add(msg.msg_id)
+        return msg
+
+    net_mod.TcpNet.recv = observed_recv   # every reply frame, from the first
+    try:
+        return _once_adds(mvt, s, shed_msgs)
+    finally:
+        net_mod.TcpNet.recv = recv
+
+
+def _once_adds(mvt, s: dict, shed_msgs: set) -> dict:
+    client = mvt.remote_connect(s["endpoint"])
+    table = client.table(0)
+    wait_go()
+    handles, acked, shed, expired = [], [], [], []
+
+    def settle(i, h):
+        try:
+            table.wait(h)
+        except RuntimeError as exc:
+            if "deadline_exceeded" not in str(exc):
+                raise
+            expired.append(i)
+            return
+        (shed if h in shed_msgs else acked).append(i)
+
+    for i in range(s["adds"]):
+        ids, vals = once_add(s["seed"], s["idx"], i, s["num_row"],
+                             s["num_col"], s["batch"])
+        handles.append((i, table.add_async(vals, row_ids=ids)))
+        if len(handles) >= s["window"]:
+            settle(*handles.pop(0))
+    for i, h in handles:
+        settle(i, h)
+    client.close()
+    return {"acked": acked, "shed": shed, "expired": expired}
+
+
+def w2v_setup(w2v=None):
+    from multiverso_tpu_torch.models.vocab import Dictionary
+    from multiverso_tpu_torch.models.word2vec import Word2VecConfig
+    config = Word2VecConfig(**dict(W2V, **(w2v or {})))
+    d = Dictionary()
+    d.words = [f"w{i}" for i in range(config.vocab_size)]
+    d.counts = w2v_counts(config.vocab_size)
+    return config, d
+
+
+def client_w2v(mvt, s: dict) -> dict:
+    """Leg 5: ``PSTrainer`` on remote proxies of the server's w_in, w_out
+    and count tables; the step runs on ``device`` in this process. One
+    block, then (after GO) ``timed`` blocks through the pipelined loop."""
+    from multiverso_tpu_torch.models.word2vec import PSTrainer
+    config, d = w2v_setup(s.get("w2v"))
+    rng = np.random.default_rng(0)
+    blocks = [zipf_tokens(rng, config.block_tokens, config.vocab_size)
+              for _ in range(1 + s["timed"])]
+    mvt.init(device=s["device"])
+    try:
+        tr = PSTrainer(config, d)
+        client = mvt.remote_connect(s["endpoint"])
+        tr.input_table, tr.output_table, tr.count_table = (
+            client.table(0), client.table(1), client.table(2))
+        if tr.input_table.supports_device_io:
+            raise AssertionError("a remote proxy claims device IO")
+        loss = tr.train_block(blocks[0])
+        print(f"BLOCK1 {loss}", flush=True)
+        out = {"loss": loss, "stats": tr.last_block_stats}
+        if s["timed"]:
+            wait_go()
+            t0 = time.perf_counter()
+            tr.train(blocks[1:], group=1, log_every_s=1e9)
+            wall = time.perf_counter() - t0  # train() ends on a stats read
+            out.update(words_per_s=(tr.words_trained - len(blocks[0])) / wall,
+                       blocks=s["timed"], seconds=wall)
+        client.close()
+        return out
+    finally:
+        mvt.shutdown()
+
+
+CLIENT_ROLES = {"ps": client_ps, "apply": client_apply, "bsp": client_bsp,
+                "once": client_once, "w2v": client_w2v}
+
+
+def client_main() -> int:
+    """A client process: each job line is a role with its flags (reset in
+    between), answered with one RESULT line; ``EXIT`` ends it. It needs no
+    card unless a job trains on one."""
+    import multiverso_tpu_torch as mvt
+    from multiverso_tpu_torch.config import FLAGS
+    from multiverso_tpu_torch.dashboard import Dashboard
+    while True:
+        line = sys.stdin.readline().strip()
+        if not line or line == "EXIT":
+            return 0
+        spec = json.loads(line)
+        FLAGS.reset()
+        Dashboard.reset()
+        for key, value in spec.get("flags", {}).items():
+            mvt.set_flag(key, value)
+        result = CLIENT_ROLES[spec["role"]](mvt, spec)
+        print("RESULT " + json.dumps(result), flush=True)
+
+
+# -- the server side of each leg ----------------------------------------------
+
+def percentiles(xs) -> dict:
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99))}
+
+
+def launch_counts(rows) -> dict:
+    return {"scatter_add_rows": rows.scatter_add_rows.launches,
+            "gather_rows": rows.gather_rows.launches}
+
+
+def zero_launches(rows) -> None:
+    rows.scatter_add_rows.launches = 0
+    rows.gather_rows.launches = 0
+
+
+def serve_ps_leg(mvt, rows, device: str, pool: ClientPool,
+                 n_clients: int = SERVE_CLIENTS, rounds: int = SERVE_ROUNDS,
+                 num_row: int = ROWS, num_col: int = COLS,
+                 batch: int = BATCH, seed: int = 3):
+    """Leg 1: the PS phase's three tables served over TCP to
+    ``n_clients`` processes; each table against a host mirror of every
+    Add; the stats RPC accounts for every Add sent."""
+    from multiverso_tpu_torch.dashboard import Dashboard
+    mvt.init(device=device, remote_workers=n_clients, heartbeat_seconds=0)
+    try:
+        mat, ada, arr = ps_tables(mvt, num_row, num_col)
+        ep = mvt.serve("127.0.0.1:0")
+        spec = dict(role="ps", endpoint=ep, rounds=rounds, seed=seed,
+                    num_row=num_row, num_col=num_col, batch=batch,
+                    flags={"heartbeat_seconds": 0})
+        results = run_jobs(pool.take(n_clients),
+                           [dict(spec, idx=i) for i in range(n_clients)],
+                           reset=lambda: (zero_launches(rows),
+                                          Dashboard.reset()))
+        launches = launch_counts(rows)
+        snap = mvt.stats(ep)       # the slot-free stats probe
+        sent = sum(r["adds"] for r in results)
+        mon = snap.monitors.get("SERVER_PROCESS_ADD_MSG", {}).get("count", 0)
+        fused = snap.counter("APPLY_FUSED_CALLS")
+        batched = snap.counter("APPLY_BATCHED_MSGS")
+        # a fused apply is one monitor entry for `batched` Adds
+        if mon - fused + batched != sent:
+            raise AssertionError(
+                f"SERVER_PROCESS_ADD_MSG {mon} (fused calls {fused} of "
+                f"{batched} Adds) does not account for the {sent} Adds sent")
+        mirror = np.zeros((num_row, num_col), np.float64)
+        ada_mirror = np.zeros((num_row, num_col), np.float32)
+        for i in range(n_clients):
+            g_sqr = np.zeros((num_row, num_col), np.float32)
+            for k in range(rounds):
+                ids, vals, _ = ps_round(seed, i, k, num_row, num_col, batch)
+                np.add.at(mirror, ids, vals)
+                if k < rounds // 4:
+                    adagrad_mirror(ada_mirror, g_sqr, ids, vals, 0.1, 0.1)
+            del g_sqr
+        arr_mirror = np.full(num_row, sum(i + k for i in range(n_clients)
+                                          for k in range(rounds // 4)),
+                             np.float32)
+        for name, table, want in (("matrix", mat, mirror),
+                                  ("adagrad matrix", ada, ada_mirror),
+                                  ("array", arr, arr_mirror)):
+            np.testing.assert_allclose(
+                table.get(), want, rtol=RTOL, atol=ATOL,
+                err_msg=f"served {name} table != host mirror")
+        del mirror, ada_mirror
+        adds = [x for r in results for x in r["add_us"]]
+        gets = [x for r in results for x in r["get_us"]]
+        wall = max(r["end"] for r in results) - min(r["start"] for r in results)
+        # where a served Add's time goes: the client's codec, this
+        # process's frame and codec work, the dispatcher's apply
+        server_ms = {name: snap.monitors.get(name, {}).get("average_ms")
+                     for name in ("WIRE_DECODE", "WIRE_ENCODE",
+                                  "SERVER_PROCESS_ADD_MSG",
+                                  "SERVER_PROCESS_GET_MSG",
+                                  "SERVER_DISPATCH_MSG")}
+        for name in ("FRAME_DECODE_SECONDS", "FRAME_ENCODE_SECONDS"):
+            h = snap.histogram(name)
+            server_ms[name + "_p50"] = (h.p50 * 1e3 if h is not None
+                                        else None)
+        client_ms = {name: float(np.mean([r["client_wire_ms"][name]
+                                          for r in results]))
+                     for name in ("WIRE_ENCODE", "WIRE_DECODE")}
+        return {"clients": n_clients, "matrix_adds": len(adds),
+                "adds_per_s": len(adds) / wall, "seconds": wall,
+                "add_us": percentiles(adds), "get_us": percentiles(gets),
+                "adds_sent": sent, "server_process_add_msg": mon,
+                "fused_calls": fused, "fused_adds": batched,
+                "dedup_hits": snap.counter("SERVER_DEDUP_HITS"),
+                "server_ms": server_ms, "client_ms": client_ms}, launches
+    finally:
+        stop_runtime(mvt)
+
+
+def serve_apply_leg(mvt, device: str, pool: ClientPool, scratch: str,
+                    shm: bool, batch_msgs: int, num_row: int = APPLY_ROWS,
+                    num_col: int = APPLY_COLS, adds: int = APPLY_ADDS,
+                    producers: int = APPLY_PRODUCERS,
+                    window: int = APPLY_WINDOW, batch: int = BATCH) -> dict:
+    """Leg 2: bench_apply_path's served Adds from one client process with
+    ``producers`` threads; the table bitwise against its mirror. Ring
+    segments go to ``scratch``, never to a directory other runs share."""
+    from multiverso_tpu_torch.dashboard import Dashboard
+    mvt.init(device=device, remote_workers=1, wire_shm=shm,
+             wire_shm_dir=scratch, apply_batch_msgs=batch_msgs,
+             heartbeat_seconds=0)
+    try:
+        table = mvt.create_table("matrix", num_row, num_col)
+        ep = mvt.serve("127.0.0.1:0")
+        spec = dict(role="apply", endpoint=ep, adds=adds, producers=producers,
+                    window=window, num_row=num_row, num_col=num_col,
+                    batch=batch, flags={"wire_shm": shm,
+                                        "wire_shm_dir": scratch,
+                                        "heartbeat_seconds": 0})
+        (res,) = run_jobs(pool.take(1), [spec], reset=Dashboard.reset)
+        snap = mvt.stats(ep)
+        mirror = np.zeros((num_row, num_col), np.float32)
+        sets = apply_sets(num_row, num_col, batch)
+        for i in range(res["per_producer"]):
+            ids, vals = sets[i % APPLY_SETS]
+            mirror[ids] += producers * vals
+        if not np.array_equal(table.get(), mirror):
+            raise AssertionError(f"served apply (shm={shm}, batch "
+                                 f"{batch_msgs}): table != mirror")
+        fused = snap.counter("APPLY_FUSED_CALLS")
+        if (fused > 0) != (batch_msgs > 0):
+            raise AssertionError(f"apply_batch_msgs={batch_msgs}: "
+                                 f"{fused} fused calls")
+        hist = snap.histogram("APPLY_BATCH_ROWS")
+        shm_frames = snap.counter("SHM_RX_FRAMES")
+        if shm and not shm_frames > 0:
+            raise AssertionError("wire_shm: no frame came over the ring")
+        return {"transport": "shm" if shm else "tcp",
+                "apply_batch_msgs": batch_msgs, "gbps": res["gbps"],
+                "process_add_ms": snap.monitors.get(
+                    "SERVER_PROCESS_ADD_MSG", {}).get("average_ms"),
+                "wire_decode_ms": snap.monitors.get(
+                    "WIRE_DECODE", {}).get("average_ms"),
+                "adds_per_s": res["adds_per_s"], "adds": res["adds"],
+                "apply_batch_rows_p50": (hist.p50 if hist is not None
+                                         and hist.count else None),
+                "fused_calls": fused,
+                "batched_msgs": snap.counter("APPLY_BATCHED_MSGS"),
+                "shm_frames_recv": shm_frames}
+    finally:
+        stop_runtime(mvt)
+
+
+def serve_bsp_leg(mvt, device: str, pool: ClientPool, scratch: str,
+                  victim: bool,
+                  num_row: int = ROWS, num_col: int = COLS,
+                  batch: int = BATCH, rounds: int = BSP_WIRE_ROUNDS,
+                  seed: int = 5) -> dict:
+    """Leg 3: BSP over the wire. Without a victim, 2 clients; with one, a
+    third client is killed with SIGKILL after its 5th Add (mid-round) and
+    the survivors' rounds go on once its lease (2 s) expires."""
+    from multiverso_tpu_torch.dashboard import Dashboard
+    n = 3 if victim else 2
+    adds = [rounds] * 2 + ([BSP_VICTIM_ADDS] if victim else [])
+    dump = os.path.join(scratch, f"flight_{time.monotonic_ns()}.jsonl")
+    mvt.init(device=device, sync=True, ps_role="server", remote_workers=n,
+             lease_seconds=LEASE_S, sync_stall_seconds=0.5,
+             flight_recorder_path=dump, heartbeat_seconds=0)
+    try:
+        table = mvt.create_table("matrix", num_row, num_col)
+        ep = mvt.serve("127.0.0.1:0")
+        spec = dict(role="bsp", endpoint=ep, seed=seed, num_row=num_row,
+                    num_col=num_col, batch=batch, adds=adds,
+                    flags={"heartbeat_seconds": 0.5})
+        t0 = time.perf_counter()
+        procs = pool.take(n)
+        for i, p in enumerate(procs):
+            p.job(dict(spec, idx=i, victim=(i == 2)))
+        for p in procs:
+            p.expect("READY")
+        Dashboard.reset()
+        for p in procs:
+            p.send("GO")
+        killed = None
+        if victim:
+            killed = int(procs[2].expect("MIDROUND"))
+            pool.drop(procs[2])            # SIGKILL, mid-round
+            t_kill = time.perf_counter()
+        results = [p.result() for p in procs[:2]]
+        t_done = time.perf_counter()       # before any checking
+        wall = t_done - t0
+        snap = mvt.stats(ep)
+        mirror = np.zeros((num_row, num_col), np.float32)
+        for w, k_n in enumerate(adds):
+            for k in range(k_n):
+                ids, vals, _ = bsp_round(seed, w, k, num_row, num_col, batch)
+                np.add.at(mirror, ids, vals)
+        if not np.array_equal(table.get(), mirror):
+            raise AssertionError("BSP over the wire: table != mirror")
+        out = {"clients": n, "rounds": rounds, "seconds": wall,
+               "gets_checked": sum(r["rounds"] for r in results)}
+        if victim:
+            evictions = snap.counter("WORKER_EVICTIONS")
+            if evictions != 1:
+                raise AssertionError(f"WORKER_EVICTIONS {evictions}, not 1")
+            with open(dump) as f:
+                events = [json.loads(line) for line in f
+                          if '"kind": "event"' in line]
+            named = [e for e in events if e.get("reason") == "worker_evicted"
+                     and e.get("worker") == killed]
+            if not named:
+                raise AssertionError(f"no flight dump names worker {killed}: "
+                                     f"{events}")
+            out.update(killed_worker=killed, evictions=evictions,
+                       survivors_after_kill_s=t_done - t_kill,
+                       flight_events=[e["reason"] for e in events])
+        return out
+    finally:
+        stop_runtime(mvt)
+
+
+def once_mirror(results, seed: int, num_row: int, num_col: int, batch: int,
+                which: str = "acked") -> np.ndarray:
+    mirror = np.zeros((num_row, num_col), np.float32)
+    for idx, r in enumerate(results):
+        for i in r[which]:
+            ids, vals = once_add(seed, idx, i, num_row, num_col, batch)
+            np.add.at(mirror, ids, vals)
+    return mirror
+
+
+def bitwise_gap(table, mirror) -> float:
+    """0.0 when the table equals the mirror bit for bit, else max |diff|."""
+    got = table.get()
+    return 0.0 if np.array_equal(got, mirror) else float(
+        np.abs(got - mirror).max())
+
+
+def serve_once_leg(mvt, device: str, pool: ClientPool, what: str,
+                   flags: dict,
+                   client_flags: dict, n_clients: int = SERVE_CLIENTS,
+                   adds: int = ONCE_ADDS, window: int = ONCE_WINDOW,
+                   num_row: int = APPLY_ROWS, num_col: int = APPLY_COLS,
+                   batch: int = BATCH, seed: int = 9) -> dict:
+    """Leg 4, one of: reply loss (retransmits through the dedup window),
+    backlog shedding, deadlines. The table must equal, bit for bit, the
+    mirror of the acknowledged Adds; then a planted fault (an Add applied
+    twice, or a shed Add applied) must break that equality."""
+    from multiverso_tpu_torch.dashboard import Dashboard
+    mvt.init(device=device, remote_workers=n_clients, heartbeat_seconds=0,
+             **flags)
+    try:
+        table = mvt.create_table("matrix", num_row, num_col)
+        ep = mvt.serve("127.0.0.1:0")
+        spec = dict(role="once", endpoint=ep, adds=adds, window=window,
+                    seed=seed, num_row=num_row, num_col=num_col, batch=batch,
+                    flags=dict(client_flags, heartbeat_seconds=0))
+        results = run_jobs(pool.take(n_clients),
+                           [dict(spec, idx=i) for i in range(n_clients)],
+                           reset=Dashboard.reset)
+        snap = mvt.stats(ep)
+        mirror = once_mirror(results, seed, num_row, num_col, batch)
+        gap = bitwise_gap(table, mirror)
+        if gap:
+            raise AssertionError(f"{what}: table != mirror of the acknowledged "
+                                 f"Adds (max |diff| {gap})")
+        out = {k: sum(len(r[k]) for r in results)
+               for k in ("acked", "shed", "expired")}
+        out.update(dedup_hits=snap.counter("SERVER_DEDUP_HITS"),
+                   shed_adds=snap.counter("SHED_ADDS"),
+                   deadline_drops=snap.counter("DEADLINE_EXPIRED_DROPS"),
+                   injected=snap.counter("FAULT_INJECTED_DROP"))
+        # the planted fault: the check must catch it
+        plant = None
+        if what == "reply_loss":
+            idx = next(i for i, r in enumerate(results) if r["acked"])
+            plant = once_add(seed, idx, results[idx]["acked"][0], num_row,
+                             num_col, batch)
+        elif what == "shedding":
+            idx = next((i for i, r in enumerate(results) if r["shed"]), None)
+            if idx is not None:
+                plant = once_add(seed, idx, results[idx]["shed"][0], num_row,
+                                 num_col, batch)
+        if plant is not None:
+            table.add(plant[1], row_ids=plant[0])
+            out["planted_gap"] = bitwise_gap(table, mirror)
+            if not out["planted_gap"] > 0:
+                raise AssertionError(f"{what}: the planted fault was not seen")
+        return out
+    finally:
+        stop_runtime(mvt)
+
+
+def serve_w2v_leg(mvt, rows, device: str, pool: ClientPool, w2v=None,
+                  timed: int = W2V_WIRE_BLOCKS) -> dict:
+    """Leg 5: word2vec through remote proxies. The server holds w_in,
+    w_out and the count table on ``device``; a client process trains one
+    block on ``device`` and one on the CPU from the same tables (restored
+    in between), which must agree; then ``timed`` blocks on ``device``."""
+    from multiverso_tpu_torch import convert
+    from multiverso_tpu_torch.models.word2vec import PSTrainer
+    config, d = w2v_setup(w2v)
+    mvt.init(device=device, remote_workers=2, heartbeat_seconds=0)
+    try:
+        tr = PSTrainer(config, d)
+        w_in0, w_out0 = tr.input_table.get(), tr.output_table.get()
+        ep = mvt.serve("127.0.0.1:0")
+        spec = dict(role="w2v", endpoint=ep, w2v=w2v,
+                    flags={"heartbeat_seconds": 0})
+        zero_launches(rows)
+        card, cpu = pool.take(2)
+        card.job(dict(spec, idx=0, device=device, timed=timed))
+        card.expect("BLOCK1")
+        on_card = (tr.input_table.get(), tr.output_table.get())
+        convert.load_state(tr.input_table, w_in0, {})
+        convert.load_state(tr.output_table, w_out0, {})
+        cpu.job(dict(spec, idx=1, device="cpu", timed=0))
+        cpu_res = cpu.result()
+        on_cpu = (tr.input_table.get(), tr.output_table.get())
+        for got, want, name in zip(on_card, on_cpu, ("w_in", "w_out")):
+            np.testing.assert_allclose(
+                got, want, rtol=W2V_RTOL, atol=W2V_ATOL,
+                err_msg=f"word2vec over the wire: {name}, card != CPU")
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(on_card, on_cpu))
+        card.expect("READY")
+        card.send("GO")
+        res = card.result()
+        launches = launch_counts(rows)
+        words = int(tr.count_table.get(0))
+        return {"words_per_s": res["words_per_s"], "blocks": res["blocks"],
+                "card_vs_cpu_max_abs": err, "loss_block1": res["loss"],
+                "loss_block1_cpu": cpu_res["loss"],
+                "words_counted": words}, launches
+    finally:
+        stop_runtime(mvt)
+
+
+def serve_phase(mvt, rows, device: str, card: str, scratch: str,
+                sizes=None) -> tuple:
+    """Phase 14: the port's tables served to client processes. Returns
+    (metrics, launch counts of legs 1 and 5). ``sizes`` shrinks the legs
+    for a CPU rehearsal; ``overload`` sets leg 4's backlog limit and
+    deadline for it."""
+    sz = dict(ps={}, apply={}, bsp={}, once={}, w2v={},
+              overload=dict(queue_limit=ONCE_QUEUE_LIMIT,
+                            deadline_s=ONCE_DEADLINE_S))
+    sz.update(sizes or {})
+    over = sz["overload"]
+    n_ps = sz["ps"].get("n_clients", SERVE_CLIENTS)
+    n_once = sz["once"].get("n_clients", SERVE_CLIENTS)
+    t_phase = time.perf_counter()
+    metrics, seconds = {}, {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    # one process more than a leg needs: leg 3 kills one
+    with ClientPool(max(n_ps, n_once, 2) + 1, scratch) as pool:
+        ps, ps_launches = timed("1", serve_ps_leg, mvt, rows, device, pool,
+                                **sz["ps"])
+        metrics["1_ps_tcp"] = ps
+        print(f"served PS rows (leg 1) on {card}: {json.dumps(ps)}; launches "
+              f"over the leg: {json.dumps(ps_launches)}", flush=True)
+        metrics["2_apply"] = {}
+        for shm, batch_msgs in ((True, 64), (True, 0), (False, 64)):
+            leg = timed(f"2_{shm}_{batch_msgs}", serve_apply_leg, mvt, device,
+                        pool, scratch, shm, batch_msgs, **sz["apply"])
+            metrics["2_apply"][f"{leg['transport']}_{batch_msgs}"] = leg
+            print(f"served apply path (leg 2) on {card}: {json.dumps(leg)}",
+                  flush=True)
+        metrics["3_bsp"] = timed("3", serve_bsp_leg, mvt, device, pool,
+                                 scratch, False, **sz["bsp"])
+        metrics["3_bsp_kill"] = timed("3_kill", serve_bsp_leg, mvt, device,
+                                      pool, scratch, True, **sz["bsp"])
+        print(f"BSP over the wire (leg 3) on {card}: "
+              f"{json.dumps(metrics['3_bsp'])}; with a client killed: "
+              f"{json.dumps(metrics['3_bsp_kill'])}", flush=True)
+        once = metrics["4_once"] = {}
+        for what, flags, client_flags in (
+                ("reply_loss", dict(fault_spec="drop:type=Reply_Add,every=7"),
+                 dict(request_retry_seconds=0.2)),
+                ("shedding",
+                 dict(admission_queue_limit=over["queue_limit"]), {}),
+                ("deadlines", {},
+                 dict(request_deadline_seconds=over["deadline_s"]))):
+            once[what] = timed(f"4_{what}", serve_once_leg, mvt, device, pool,
+                               what, flags, client_flags, **sz["once"])
+        print(f"exactly-once and overload (leg 4) on {card}: "
+              f"{json.dumps(once)}", flush=True)
+        for what, keys in (("reply_loss", ("dedup_hits", "acked")),
+                           ("shedding", ("shed", "acked")),
+                           ("deadlines", ("deadline_drops", "acked"))):
+            for key in keys:
+                if not once[what][key] > 0:
+                    raise AssertionError(f"leg 4 {what}: {key} is 0")
+        w2v, w2v_launches = timed("5", serve_w2v_leg, mvt, rows, device, pool,
+                                  **sz["w2v"])
+        metrics["5_word2vec"] = w2v
+        print(f"word2vec through remote proxies (leg 5) on {card}: "
+              f"{json.dumps(w2v)}; launches over the leg: "
+              f"{json.dumps(w2v_launches)}", flush=True)
+    metrics["leg_s"] = seconds
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    return metrics, {"1_ps_tcp": ps_launches, "5_word2vec": w2v_launches}
+
+
 KERNELS = {
     "scatter_add_rows":"multiverso_tpu/ops/pallas_rows.py:172",
     "gather_rows": "multiverso_tpu/ops/pallas_rows.py:107",
@@ -2760,7 +3610,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--rounds", type=int, default=256,
                         help="1024-row Add+Get rounds per worker thread")
+    parser.add_argument("--client", action="store_true",
+                        help="run as one client process of phase 14 (the "
+                             "script starts these itself)")
     args = parser.parse_args(argv)
+    if args.client:
+        return client_main()
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device; this check runs on the "
               "card only", file=sys.stderr)
@@ -2914,7 +3769,16 @@ def smoke(args, scratch: str) -> int:
     asgd = asgd_phase(mvt, "cuda", scratch)
     print(f"ASGD ResNet-32 on {card}: {json.dumps(asgd)}", flush=True)
 
-    # 14. the kernel line, then the verdict
+    # 14. serving over the wire: client processes against the card's tables
+    serve, serve_launches = serve_phase(mvt, rows, "cuda", card, scratch)
+    print(f"serving on {card}: {json.dumps(serve)}", flush=True)
+    for leg, counts in serve_launches.items():
+        for k, n in counts.items():
+            if n <= 0:
+                raise AssertionError(f"{k}: no launch in the server over "
+                                     f"serving leg {leg}")
+
+    # 15. the kernel line, then the verdict
     table = []
     for k, where in KERNELS.items():
         r = results[k]

@@ -18,6 +18,18 @@ Public surface (MV_* parity, the part ported so far):
     worker(slot)                   (bind a logical worker context to a thread)
     aggregate                      (MV_Aggregate: a sum across worker contexts)
     query                          (server-side top-k retrieval pushdown)
+    serve / remote_connect / stop_serving
+                                   (tables served to other processes)
+    stats / watermark              (slot-free probes of a serving process)
+    net_bind / net_connect / net_finalize / net
+                                   (MV_NetBind / MV_NetConnect raw transport)
+
+``serve`` answers worker processes over TCP (or a shared-memory ring,
+``-wire_shm``) with the JAX package's wire format, so a client of either
+package reaches a server of either package; ``remote_connect`` gives a
+client's worker-table proxies (host arrays in and out; a client needs no
+card). Set ``remote_workers`` at init so the round clocks and per-worker
+updater state cover the remote clients.
 
 ``create_table("kv", dtype, capacity=N)`` puts the KV table's keys and
 values on the device (``DeviceKVServer``); the tiered kinds keep a hot set
@@ -60,7 +72,12 @@ def init(argv: Optional[Sequence[str]] = None, sync: Optional[bool] = None,
         set_flag("sync", sync)
     for key, value in flag_overrides.items():
         set_flag(key, value)
-    return Zoo.instance().start(argv)
+    _configure_profiling()  # first: the dispatcher thread is traced too
+    try:
+        return Zoo.instance().start(argv)
+    except BaseException:
+        _stop_profiling(export=False)
+        raise
 
 
 def shutdown(finalize_net: bool = True) -> None:
@@ -68,6 +85,49 @@ def shutdown(finalize_net: bool = True) -> None:
     closes over the tables it was built for."""
     Zoo.instance().stop(finalize_net)
     clear_programs()
+    _stop_profiling()
+
+
+_trace_profile = None  # the trace_dir flag's torch.profiler session
+
+
+def _configure_profiling() -> None:
+    """``trace_dir``: record a ``torch.profiler`` trace of the span from
+    init to shutdown (the card's kernels too when CUDA is up), with every
+    ``dashboard.monitor`` section as a named scope in it."""
+    global _trace_profile
+    trace_dir = str(get_flag("trace_dir"))
+    Dashboard.profile_annotations = bool(trace_dir)
+    if trace_dir and _trace_profile is None:
+        import torch
+        from torch._C._profiler import _ExperimentalConfig
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        # every thread: the dispatcher applies, the workers call
+        _trace_profile = profile(
+            activities=activities,
+            experimental_config=_ExperimentalConfig(profile_all_threads=True))
+        _trace_profile.__enter__()
+
+
+def _stop_profiling(export: bool = True) -> None:
+    """End the ``trace_dir`` session and write its trace as
+    ``trace_<pid>.json`` (Chrome format); a no-op when none is running."""
+    global _trace_profile
+    if _trace_profile is None:
+        return
+    import os
+    prof, _trace_profile = _trace_profile, None
+    Dashboard.profile_annotations = False
+    prof.__exit__(None, None, None)
+    if not export:
+        return
+    trace_dir = str(get_flag("trace_dir"))
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir,
+                                          f"trace_{os.getpid()}.json"))
 
 
 def barrier() -> None:
@@ -165,6 +225,137 @@ def query(table: Any, vecs: Any, k: int, metric: str = "dot"):
     ``(ids, scores)``, each (n_q, k') with k' = min(k, rows), ranked
     score-descending, ties toward the lower id."""
     return table.query(vecs, k, metric=metric)
+
+
+# -- remote table serving (cross-process PS) ---------------------------------
+# The reference's core product: workers in OTHER processes reach tables over
+# the network (worker actor → communicator → net → server). The process
+# that holds the tables calls serve(); other processes call remote_connect()
+# and get worker-table proxies with the same get/add semantics.
+
+def serve(endpoint: str = "127.0.0.1:0") -> str:
+    """Start serving this process's tables to remote clients; returns the
+    dialable endpoint (pass port 0 for ephemeral). Set the
+    ``remote_workers`` flag at init so BSP clocks and per-worker updater
+    state cover the remote clients.
+
+    The JAX package logs every remote Add to a write-ahead log when the
+    ``wal_dir`` flag is set; this package has no ``durable/`` yet, so a
+    set ``wal_dir`` is fatal here rather than served without its log."""
+    zoo = Zoo.instance()
+    if not zoo.started or zoo.server is None:
+        log.fatal("serve: init() the PS runtime first (not available in ma mode)")
+    if str(get_flag("wal_dir")):
+        log.fatal("serve: the wal_dir flag asks for a write-ahead log, and "
+                  "multiverso_tpu_torch has no durable/ package (durable/"
+                  "wal.py) yet; unset wal_dir to serve without durability")
+    if not str(get_flag("metrics_role")):
+        # fleet identity for labeled Prometheus exposition
+        set_flag("metrics_role", "primary")
+    if zoo.remote_server is None:
+        from multiverso_tpu_torch.runtime.remote import RemoteServer
+        zoo.remote_server = RemoteServer(zoo)
+        if zoo._dedup_seeds:
+            zoo.remote_server.seed_dedup(zoo._dedup_seeds)
+            zoo._dedup_seeds = None
+        try:
+            return zoo.remote_server.serve(endpoint)
+        except OSError:
+            # bind failed (port still held): leave no half-serving state
+            # behind so a retry can call serve() again
+            zoo.remote_server.stop()
+            zoo.remote_server = None
+            raise
+    return zoo.remote_server.endpoint
+
+
+def remote_connect(endpoint: str, timeout: float = 30.0,
+                   read_endpoints: Optional[Sequence[str]] = None,
+                   read_preference: Optional[str] = None):
+    """Connect to a serving process (of either package); returns a
+    RemoteClient whose ``.table(table_id)`` / ``.tables()`` give
+    worker-table proxies. Needs no ``init`` and no card. The read tier
+    (``read_endpoints``, ``read_preference``) is not ported yet: asking
+    for it raises."""
+    from multiverso_tpu_torch.runtime.remote import RemoteClient
+    return RemoteClient(endpoint, timeout=timeout,
+                        read_endpoints=(list(read_endpoints)
+                                        if read_endpoints else None),
+                        read_preference=read_preference)
+
+
+def stats(endpoint: str, timeout: float = 10.0):
+    """Live stats RPC: pull a serving process's full dashboard —
+    monitors, counters, gauges, and latency histograms with caller-side
+    p50/p95/p99 — without taking a worker slot. Returns a
+    :class:`~multiverso_tpu_torch.obs.metrics.StatsSnapshot`."""
+    from multiverso_tpu_torch.runtime.remote import fetch_stats
+    return fetch_stats(endpoint, timeout=timeout)
+
+
+def watermark(endpoint: str, timeout: float = 10.0):
+    """Watermark probe: ``{"role", "watermark", "primary_watermark",
+    "lag"}`` for a serving endpoint. Slot-free, like ``stats``; a server
+    of this package has no write-ahead log, so its watermark is -1."""
+    from multiverso_tpu_torch.runtime.remote import fetch_watermark
+    return fetch_watermark(endpoint, timeout=timeout)
+
+
+def stop_serving() -> None:
+    """Stop the remote table server while keeping the runtime up. A later
+    ``serve()`` binds fresh — the server-restart path: restart,
+    ``checkpoint.restore_tables(...)``, ``serve()`` on the old endpoint,
+    and reconnecting clients resume."""
+    zoo = Zoo.instance()
+    if zoo.remote_server is not None:
+        zoo.remote_server.stop()
+        zoo.remote_server = None
+
+
+# -- raw net mode (MV_NetBind / MV_NetConnect / MV_NetFinalize) --------------
+# External hosts (the reference's ZMQ Bind/Connect mode,
+# include/multiverso/multiverso.h:60-65) drive the transport directly
+# without starting the PS runtime.
+
+_raw_net = None
+
+
+def net_bind(rank: int, endpoint: str) -> str:
+    """Listen on ``host:port`` (port 0 → ephemeral); returns the bound
+    endpoint."""
+    global _raw_net
+    from multiverso_tpu_torch.runtime.net import TcpNet
+    if _raw_net is None:
+        _raw_net = TcpNet()
+    return _raw_net.bind(rank, endpoint)
+
+
+def net_connect(endpoints: Optional[Sequence[str]] = None) -> None:
+    """Provide the full rank→endpoint map; connections dial lazily. With no
+    argument, the map is read from the ``machine_file`` flag (one host:port
+    per line, zmq_net.h:234-254)."""
+    if _raw_net is None:
+        log.fatal("net_connect: call net_bind first")
+    if endpoints is None:
+        from multiverso_tpu_torch.runtime.net import parse_machine_file
+        path = get_flag("machine_file")
+        if not path:
+            log.fatal("net_connect: no endpoints given and the machine_file "
+                      "flag is empty")
+        endpoints = parse_machine_file(path)
+    _raw_net.connect(list(endpoints))
+
+
+def net_finalize() -> None:
+    global _raw_net
+    if _raw_net is not None:
+        _raw_net.finalize()
+        _raw_net = None
+
+
+def net():
+    """The raw-net transport (None until net_bind)."""
+    return _raw_net
 
 
 # -- tables -----------------------------------------------------------------

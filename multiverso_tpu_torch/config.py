@@ -211,8 +211,9 @@ define_string("updater_type", "default", "server-side optimizer: default|sgd|ada
 define_bool("is_pipelined", False, "double-buffered pipelined get")
 define_int("local_workers", 1, "logical worker contexts hosted by this process")
 define_int("remote_workers", 0,
-           "expected off-process worker clients; they get worker ids after "
-           "all local contexts (serving over the wire is not yet ported)")
+           "expected off-process worker clients (serve() / "
+           "remote_connect()); they get worker ids after all local "
+           "contexts")
 define_int("apply_batch_msgs", 64,
            "max queued Adds the dispatcher fuses into ONE table apply per "
            "drain (runtime/server.py): the async server drains its queue "
@@ -253,3 +254,198 @@ define_double("profile_hz", 50.0,
 define_int("profile_max_frames", 24,
            "stack-depth cap per collapsed (flamegraph) stack; deeper "
            "stacks keep their leaf-most frames")
+
+# Serving over the wire (runtime/{wire,shm,net,remote}.py), the fault
+# core (fault/), tracing and the flight recorder (obs/trace.py) and the
+# overload layer (runtime/admission.py), with the JAX package's names and
+# defaults.
+define_int("wire_quant_bits", 0,
+           "quantize remote ADD deltas to this many bits per value "
+           "(1|2|4|8) with client-side error feedback — the OneBitsFilter "
+           "slot, generalized; 0 disables")
+
+define_int("wire_coalesce_frames", 64,
+           "max frames one vectored send syscall carries on the host wire "
+           "(runtime/net.py drain loop): frames queued while a send is in "
+           "flight flush together via socket.sendmsg. 0 = legacy per-frame "
+           "sendall (also disables the zero-copy queue)")
+
+define_int("wire_coalesce_bytes", 1 << 20,
+           "max payload bytes one coalesced send syscall carries; a frame "
+           "larger than this still ships alone (never split). 0 = legacy "
+           "per-frame sendall")
+
+define_bool("wire_shm", False,
+            "negotiate a shared-memory ring transport at connect for "
+            "colocated client/server processes (runtime/shm.py): same v3 "
+            "framing + CRC + req-id contract as TCP, so dedup/retransmit/"
+            "tracing/chaos seams are unchanged; falls back to TCP "
+            "transparently when the peer is remote, has the flag off, or "
+            "cannot map the segment")
+
+define_int("wire_shm_bytes", 4 << 20,
+           "shared-memory ring capacity per direction (bytes, rounded to "
+           "a multiple of 8); frames larger than the ring stream through "
+           "it in chunks")
+
+define_int("wire_shm_spin", 20,
+           "busy-spin iterations of the shm ring wait ladder before it "
+           "starts yielding (then sleeping): the latency/CPU-burn knob; "
+           "read when a ring is mapped. 0 = yield immediately")
+
+define_string("wire_shm_dir", "",
+              "directory for shm ring segment files; empty = /dev/shm "
+              "when present, else the system temp dir")
+
+define_string("machine_file", "", "multi-host machine list (external transport)")
+
+define_int("port", 55555, "external transport port")
+
+define_string("fault_spec", "",
+              "fault-injection schedule applied to host transports "
+              "(fault/inject.py): ';'-separated rules "
+              "'action:key=val,key=val' with actions drop|delay|dup|reorder|"
+              "partition, predicates src/dst/type/table and limiters "
+              "first/after/every/prob (delay takes seconds=). Empty disables")
+
+define_int("fault_seed", 0,
+           "seed for probabilistic fault rules (prob=) so chaos runs replay")
+
+define_double("request_retry_seconds", 5.0,
+              "remote client retransmit timeout: a correlated request with "
+              "no reply after this long is re-sent (exponentially backed "
+              "off); the server's req-id dedup window keeps the replay "
+              "idempotent. 0 disables retransmission")
+
+define_double("reconnect_deadline_seconds", 20.0,
+              "total budget for a remote client's reconnect-and-resume "
+              "after a connection loss before pending requests fail; "
+              "0 restores the fail-fast posture (no reconnect)")
+
+define_double("retry_base_seconds", 0.05,
+              "reconnect backoff base: attempt k sleeps "
+              "~base*2^(k-1), jittered, capped by retry_cap_seconds")
+
+define_double("retry_cap_seconds", 2.0,
+              "upper bound on a single reconnect backoff sleep")
+
+define_double("heartbeat_seconds", 2.0,
+              "remote client lease-renewal period (Control_Heartbeat); "
+              "0 disables heartbeats (disable lease eviction too)")
+
+define_double("lease_seconds", 10.0,
+              "remote worker lease: the sync watchdog evicts a worker whose "
+              "last sign of life (heartbeat or any request) is older than "
+              "this, releasing BSP/SSP rounds it was holding; 0 disables")
+
+define_int("dedup_window", 4096,
+           "server-side request-id dedup window (entries) bounding the "
+           "idempotent-replay cache for retried remote requests")
+
+define_string("wal_dir", "",
+              "durability root of the JAX package's write-ahead log. The "
+              "port has no durable/ package yet: serve() refuses to run "
+              "with this flag set rather than serve without the log")
+
+define_string("flight_recorder_path", "",
+              "append flight-recorder dumps (event + dashboard snapshot + "
+              "the last flight_recorder_traces per-request hop traces, one "
+              "JSON object per line) to this file on worker eviction, "
+              "standby failover, frame CRC reject, or a client failing all "
+              "pending requests. Empty disables dumping")
+
+define_int("flight_recorder_traces", 256,
+           "how many recent request traces each flight-recorder dump "
+           "includes (the in-memory trace ring holds at least this many)")
+
+define_bool("trace_requests", True,
+            "stamp the v4 header's trace flag on every correlated "
+            "request, so forwarded/derived frames (router parts, read "
+            "confirms, multihost forwards) keep recording under the "
+            "originating req_id; hop recording itself is always on for "
+            "nonzero req_ids — this flag only controls propagation")
+
+define_int("trace_export_max", 256,
+           "how many recent traces a Control_Traces reply ships (each "
+           "process's trace ring holds 512)")
+
+define_int("flight_recorder_max_bytes", 64 << 20,
+           "size cap for the flight_recorder_path file: once it is at "
+           "least this large, further dumps are suppressed (counted in "
+           "FLIGHT_DUMPS_SUPPRESSED) instead of filling the disk; "
+           "0 = unlimited")
+
+define_double("flight_recorder_min_interval_seconds", 0.0,
+              "per-REASON rate limit for flight-recorder dumps: a dump "
+              "whose reason fired within this many seconds is suppressed "
+              "(counted in FLIGHT_DUMPS_SUPPRESSED); 0 disables the "
+              "rate limit — a flapping alert should set this to O(10s)")
+
+define_int("metrics_shard", -1,
+           "this process's shard index for Prometheus labels "
+           "(mvtpu_*{shard=...}); -1 omits the label")
+
+define_string("metrics_role", "",
+              "this process's serving role for Prometheus labels "
+              "(primary|replica|standby); empty omits the label. serve() "
+              "and replica/standby startup set it when unset")
+
+define_string("trace_dir", "",
+              "record a torch.profiler trace of the whole run: started at "
+              "init, written at shutdown into this directory as a Chrome "
+              "trace (trace_<pid>.json). Empty disables")
+
+define_double("request_deadline_seconds", 0.0,
+              "per-request deadline budget clients stamp on correlated "
+              "requests (Get/Add/Read); it rides the wire header as "
+              "REMAINING microseconds, re-anchored on each receiver's "
+              "monotonic clock, and the server dispatcher drops expired "
+              "work at drain time with deadline_exceeded instead of "
+              "applying it. 0 = no deadline (legacy peers' 0-stamped "
+              "frames are likewise never refused)")
+
+define_bool("priority_lanes", True,
+            "stably sort each dispatcher drain into lanes: serving reads "
+            "(admin/slot-free Gets) > control > training traffic. Stable "
+            "within a lane, so per-worker FIFO is preserved; forced off "
+            "on the deterministic server (arrival-order WAL contract)")
+
+define_int("admission_queue_limit", 0,
+           "dispatcher backlog (messages) above which the admission gate "
+           "sheds wire training writes with a truthful 'shed: ...' reply "
+           "(serving reads shed only at 4x this limit — brownout before "
+           "blackout). 0 disables backlog shedding")
+
+define_string("tenant_quota_spec", "",
+              "per-tenant write-admission quotas keyed by table "
+              "namespace: ';'-separated "
+              "name:tables=<id>|<id>,qps=<rate>[,burst=<cap>] entries — "
+              "a tenant that exhausts its token bucket has its own Adds "
+              "shed (TENANT_<name>_SHED) without touching other tenants "
+              "or the serving lane. Empty = no quotas")
+
+define_double("retry_budget_tokens", 0.0,
+              "per-connection retry budget: token bucket capacity spent "
+              "by retransmits, read hedges, and layout re-fetches, "
+              "refilled retry_budget_ratio per success — under overload "
+              "retry pressure decays to the refill rate instead of "
+              "storming. A denial defers the retry (never fails the "
+              "request) and counts RETRY_BUDGET_DENIALS. 0 = unlimited")
+
+define_double("retry_budget_ratio", 0.1,
+              "retry-budget refill per successful reply (tokens); the "
+              "steady-state retry rate is bounded at this fraction of "
+              "the success rate")
+
+define_int("breaker_failures", 0,
+           "consecutive request failures (retransmit timeouts, "
+           "connection-loss recoveries) that trip a client connection's "
+           "circuit breaker open: writes fail fast with a truthful "
+           "'circuit open' error and reads stop falling back to the "
+           "primary (replicas keep serving) until a half-open probe "
+           "succeeds. 0 disables the breaker")
+
+define_double("breaker_reset_seconds", 5.0,
+              "how long a tripped breaker stays open before admitting "
+              "one half-open probe; the probe's outcome closes or "
+              "re-opens it")

@@ -32,8 +32,16 @@ and the two trainers. What changes with the framework:
   ``row_apply_traceable`` (``scatter_add_rows``, or
   ``scatter_add_rows_coalesced`` with ``rows.COALESCE`` set).
 
-Not yet ported: the host (remote-proxy) branch of
-:meth:`PSTrainer.submit_block` and the multihost branches.
+* On remote proxies (``mvt.remote_connect``: ``supports_device_io`` is
+  False) :meth:`PSTrainer.submit_block` takes the host branch, as the JAX
+  trainer does: host candidate pulls, the pair step on the trainer's own
+  device over compact copies, host deltas pushed back. Its draws are all
+  host numpy, so the same seeds give the JAX trainer's pairs and
+  negatives.
+
+Not yet ported: the multihost branches. Remote proxies read from the
+primary: the read tier (``runtime/read.py``) is not ported, nor the
+write-ahead log hooks that would log the pushes on the server.
 """
 
 from __future__ import annotations
@@ -928,10 +936,8 @@ class PSTrainer:
         if len(block) < 2:
             return None
         lr = self.config.lr if lr is None else lr
-        if not self._device_io():
-            log.fatal("PSTrainer: the host (remote-proxy) path is not yet "
-                      "ported to multiverso_tpu_torch")
-        if self._fast_sgns:
+        device_io = self._device_io()
+        if self._fast_sgns and device_io:
             return self._submit_block_fast(block, lr)
         in_tok, in_w, predict = self._block_pairs(block)
         if len(predict) == 0:
@@ -939,18 +945,30 @@ class PSTrainer:
         out_tok, labels, mask = self._block_outputs(predict)
 
         # candidate sets: exactly the rows this block trains; both pulls
-        # are issued before either is awaited. The gather bucket IS the
-        # compact space: slots >= n are sentinel copies (at least one, by
-        # the server's ensure_pad).
+        # are issued before either is awaited (a remote client pays one
+        # round trip, not two)
         in_cand = np.unique(in_tok[in_tok >= 0]).astype(np.int32)
         out_cand = np.unique(out_tok[out_tok >= 0]).astype(np.int32)
         n_in, n_out = len(in_cand), len(out_cand)
-        h_in = self.input_table.get_device_async(in_cand)
-        h_out = self.output_table.get_device_async(out_cand)
-        cached_in = self.input_table.wait_device(h_in, in_cand)
-        cached_out = self.output_table.wait_device(h_out, out_cand)
-        r_in, r_out = cached_in.shape[0], cached_out.shape[0]
-        sent_in, sent_out = n_in, n_out  # first pad slot
+        if device_io:
+            # the gather bucket IS the compact space: slots >= n are
+            # sentinel copies (at least one, by the server's ensure_pad)
+            h_in = self.input_table.get_device_async(in_cand)
+            h_out = self.output_table.get_device_async(out_cand)
+            cached_in = self.input_table.wait_device(h_in, in_cand)
+            cached_out = self.output_table.wait_device(h_out, out_cand)
+            r_in, r_out = cached_in.shape[0], cached_out.shape[0]
+            sent_in, sent_out = n_in, n_out  # first pad slot
+        else:
+            # remote proxies: host rows into compact matrices bucketed to
+            # a power of two, the last row the sentinel scratch row
+            h_in = self.input_table.get_async(in_cand)
+            h_out = self.output_table.get_async(out_cand)
+            cached_in = self.input_table.wait_get(h_in, in_cand)
+            cached_out = self.output_table.wait_get(h_out, out_cand)
+            r_in = max(_next_pow2(n_in + 1), 8)
+            r_out = max(_next_pow2(n_out + 1), 8)
+            sent_in, sent_out = r_in - 1, r_out - 1
 
         # stack minibatches: pad pairs to a full (N, B, ...) block, N
         # bucketed to a power of two
@@ -977,23 +995,42 @@ class PSTrainer:
             "in_ids": async_upload(pad(in_ids, sent_in), dev),
             "in_weights": async_upload(pad(in_w, 0.0), dev),
             "out_ids": async_upload(pad(out_ids, sent_out), dev),
-            # labels and mask cross as bytes
-            "labels": async_upload(pad(labels.astype(np.uint8), 0), dev),
-            "mask": async_upload(pad(mask.astype(np.uint8), 0), dev),
         }
-        # full-bucket pushes with sentinel-aimed pad ids (pad deltas are
-        # exactly zero: masked grads carry zero weight)
-        ids_in_p = np.concatenate(
-            [in_cand, np.full(r_in - n_in, self.input_table.sentinel_row, np.int32)])
-        ids_out_p = np.concatenate(
-            [out_cand, np.full(r_out - n_out, self.output_table.sentinel_row,
-                               np.int32)])
+        # labels and mask cross as bytes
+        batches_d["labels"] = async_upload(pad(labels.astype(np.uint8), 0), dev)
+        batches_d["mask"] = async_upload(pad(mask.astype(np.uint8), 0), dev)
         scale = (-1.0 / lr) if self.use_adagrad else 1.0
-        delta_in, delta_out, stats = self.delta_step_fn(
-            cached_in, cached_out, batches_d, lr, scale)
         opt = self._add_option(lr) if self.use_adagrad else None
-        a1 = self.input_table.add_device_async(delta_in, ids_in_p, option=opt)
-        a2 = self.output_table.add_device_async(delta_out, ids_out_p, option=opt)
+        if not device_io:
+            # remote proxies: the zero-padded compact rows go up, the live
+            # rows' push payloads come back as host arrays
+            dim = self.config.dim
+            w_in_c = np.zeros((r_in, dim), np.float32)
+            w_in_c[:n_in] = cached_in
+            w_out_c = np.zeros((r_out, dim), np.float32)
+            w_out_c[:n_out] = cached_out
+            delta_in, delta_out, stats = self.delta_step_fn(
+                async_upload(w_in_c, dev), async_upload(w_out_c, dev),
+                batches_d, lr, scale)
+            a1 = self.input_table.add_async(delta_in[:n_in].cpu().numpy(),
+                                            row_ids=in_cand, option=opt)
+            a2 = self.output_table.add_async(delta_out[:n_out].cpu().numpy(),
+                                             row_ids=out_cand, option=opt)
+        else:
+            # full-bucket pushes with sentinel-aimed pad ids (pad deltas
+            # are exactly zero: masked grads carry zero weight)
+            ids_in_p = np.concatenate(
+                [in_cand, np.full(r_in - n_in, self.input_table.sentinel_row,
+                                  np.int32)])
+            ids_out_p = np.concatenate(
+                [out_cand, np.full(r_out - n_out,
+                                   self.output_table.sentinel_row, np.int32)])
+            delta_in, delta_out, stats = self.delta_step_fn(
+                cached_in, cached_out, batches_d, lr, scale)
+            a1 = self.input_table.add_device_async(delta_in, ids_in_p,
+                                                   option=opt)
+            a2 = self.output_table.add_device_async(delta_out, ids_out_p,
+                                                    option=opt)
         return {"a1": a1, "a2": a2, "stats": stats, "n_in": n_in,
                 "n_out": n_out, "pairs": p, "block_len": int(len(block))}
 

@@ -1,0 +1,1236 @@
+"""Remote table serving — the cross-process parameter-server path (port of
+``multiverso_tpu/runtime/remote.py``).
+
+Reference capability (not copied): a worker in ANY process reaches tables via
+worker actor → Communicator → network → Server actor, with the reply
+retracing the path (``src/worker.cpp:30-76``, ``src/communicator.cpp:69-105``,
+``src/server.cpp:36-58``).
+
+ONE process owns the tables (torch tensors on its device) and runs the
+dispatcher (:mod:`multiverso_tpu_torch.runtime.server`); any other process
+is a client. :class:`RemoteServer` is the net↔dispatcher bridge: a pump
+thread pops table-request frames from the TCP (or shared-memory) mailbox,
+decodes them into the same request structures local workers enqueue, and
+attaches a completion that frames the reply back over the connection the
+request arrived on. Every table's ``process_get`` answers a host request
+with numpy, so the reply is encoded on the dispatcher from host arrays: no
+tensor reaches the codec or the pump thread, and the pump launches
+nothing. :class:`RemoteClient` registers (a worker id + the table
+directory) and hands out worker-table proxies that share all client
+shaping code with the in-process workers; only the channel differs. A
+client holds no table state and touches no card.
+
+The wire is the JAX package's, byte for byte: a client of either package
+talks to a server of either package. The table directory carries each
+table's logical shape and numpy dtype string (``remote_spec``).
+
+Fault story (:mod:`multiverso_tpu_torch.fault`): every correlated request
+carries a session-unique ``req_id``; the server keeps a bounded dedup
+window mapping req_id to the cached reply, so a client may retransmit
+freely and a retried Add applies exactly once. Remote workers renew a lease
+with heartbeats; the sync watchdog evicts expired leases from the BSP/SSP
+clock gates. Transports are built through
+:func:`multiverso_tpu_torch.fault.inject.make_net`, so the whole path runs
+under seeded fault injection via config flags.
+
+Not yet ported (``ROADMAP.md`` queue 1), and refused with an error that
+names the missing module: the write-ahead log and what stands on it
+(``durable/``: standby replication, consistent cuts), the shard group's
+layout and live migration (``shard/``), the digest probe
+(``obs/audit.py``) and the client read tier (``runtime/read.py``).
+"""
+
+from __future__ import annotations
+
+import itertools
+import random
+import threading
+import time
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from multiverso_tpu_torch import config, log
+from multiverso_tpu_torch.dashboard import Dashboard, count, gauge_set, observe
+from multiverso_tpu_torch.fault.detector import LivenessDetector
+from multiverso_tpu_torch.fault.inject import make_net
+from multiverso_tpu_torch.fault.retry import (CircuitBreaker, RetryBudget,
+                                        RetryPolicy)
+from multiverso_tpu_torch.obs.metrics import StatsSnapshot
+from multiverso_tpu_torch.obs.trace import flight_dump, hop, tag_tenant
+from multiverso_tpu_torch.runtime.admission import resolve_tenant
+from multiverso_tpu_torch.runtime.contracts import slot_free
+from multiverso_tpu_torch.runtime.message import Message, MsgType, next_msg_id
+from multiverso_tpu_torch.runtime.net import TcpNet
+from multiverso_tpu_torch.runtime import wire
+from multiverso_tpu_torch.tables.array_table import ArrayWorker
+from multiverso_tpu_torch.tables.base import Completion, WorkerTable
+from multiverso_tpu_torch.tables.kv_table import KVWorker
+from multiverso_tpu_torch.tables.matrix_table import (MatrixWorker,
+                                                      merge_duplicate_rows)
+from multiverso_tpu_torch.tables.sparse_table import SparseWorker
+
+# wire_quant_bits lives in config.py (must exist before this module is
+# first imported so mv.init(wire_quant_bits=...) works)
+config.define_bool("wire_compression", True,
+                   "SparseFilter-compress float32 payloads on host hops "
+                   "when the sparse form is smaller")
+
+
+# -- server side -------------------------------------------------------------
+
+# dedup-window sentinel: the request arrived and is being processed; a
+# replay seen now is swallowed (the original's completion will reply)
+_INFLIGHT = object()
+
+
+def _host_reply(payload: Any) -> Any:
+    """A reply payload with every tensor read to a host numpy array. The
+    tables answer host requests with numpy already; a request in one of
+    the in-process device forms would answer with a tensor, and the codec
+    and the pump take host arrays only. Runs where the completion fires:
+    on the dispatcher thread."""
+    if isinstance(payload, torch.Tensor):
+        return payload.detach().cpu().numpy()
+    if isinstance(payload, tuple):
+        return tuple(_host_reply(x) for x in payload)
+    if isinstance(payload, list):
+        return [_host_reply(x) for x in payload]
+    if isinstance(payload, dict):
+        return {k: _host_reply(v) for k, v in payload.items()}
+    return payload
+
+
+class _NetCompletion:
+    """Dispatcher completion that frames the result back over the wire and
+    records it in the server's dedup window, so a replay of the same
+    request re-sends this reply instead of re-applying the request."""
+
+    __slots__ = ("_server", "_conn", "_template", "_compress")
+
+    def __init__(self, server: "RemoteServer", conn, template: Message,
+                 compress: bool) -> None:
+        self._server = server
+        self._conn = conn
+        self._template = template
+        self._compress = compress
+
+    def _reply(self, msg_type: MsgType, payload: Any) -> None:
+        t = self._template
+        msg = Message(src=t.dst, dst=t.src, type=msg_type,
+                      table_id=t.table_id, msg_id=t.msg_id, req_id=t.req_id,
+                      watermark=self._server.append_watermark(),
+                      data=wire.encode(_host_reply(payload),
+                                       compress=self._compress))
+        self._server._dedup_store(t.req_id, msg)
+        hop(t.req_id, "reply_sent")
+        try:
+            self._server._net.send_via(self._conn, msg)
+        except OSError as exc:
+            log.error("remote: reply to worker %d failed: %r (the client "
+                      "recovers it via retransmit + the dedup cache)",
+                      t.src, exc)
+
+    def done(self, result: Any) -> None:
+        reply_type = (MsgType.Reply_Get
+                      if self._template.type == MsgType.Request_Get
+                      else MsgType.Reply_Add)
+        self._reply(reply_type, result)
+
+    def fail(self, error: BaseException) -> None:
+        # admission refusals and deadline drops ship their exact truthful
+        # string (clients key graceful degradation on the "shed: " /
+        # "deadline_exceeded" prefixes); everything else ships its repr
+        self._reply(MsgType.Reply_Error,
+                    getattr(error, "wire_text", None) or repr(error))
+
+
+class _QueryCompletion:
+    """Completion for a slot-free Request_Query: replies Reply_Query.
+    Idempotent like a read — no dedup entry; a replayed query just
+    re-scores."""
+
+    __slots__ = ("_server", "_conn", "_template", "_compress")
+
+    def __init__(self, server: "RemoteServer", conn, template: Message,
+                 compress: bool) -> None:
+        self._server = server
+        self._conn = conn
+        self._template = template
+        self._compress = compress
+
+    def _reply(self, msg_type: MsgType, payload: Any) -> None:
+        t = self._template
+        msg = Message(src=t.dst, dst=t.src, type=msg_type,
+                      table_id=t.table_id, msg_id=t.msg_id, req_id=t.req_id,
+                      watermark=self._server.append_watermark(),
+                      data=wire.encode(_host_reply(payload),
+                                       compress=self._compress))
+        hop(t.req_id, "query_reply_sent")
+        try:
+            self._server._net.send_via(self._conn, msg)
+        except OSError as exc:
+            log.error("remote: query reply failed: %r", exc)
+
+    def done(self, result: Any) -> None:
+        count("QUERIES_SERVED_PRIMARY")
+        self._reply(MsgType.Reply_Query, result)
+
+    def fail(self, error: BaseException) -> None:
+        self._reply(MsgType.Reply_Error,
+                    getattr(error, "wire_text", None) or repr(error))
+
+
+# control frames whose serving side stands on a module this package does
+# not have yet: each is answered with a Reply_Error naming that module
+_NOT_PORTED = {
+    MsgType.Control_Digest: (
+        "state digests need obs/audit.py (digest_payload), which "
+        "multiverso_tpu_torch does not have yet"),
+    MsgType.Control_Cut: (
+        "consistent cuts need durable/cut.py and a write-ahead log, which "
+        "multiverso_tpu_torch does not have yet"),
+    MsgType.Request_Read: (
+        "replica reads belong to the read tier (runtime/read.py), which "
+        "multiverso_tpu_torch does not have yet; send a Request_Get"),
+    MsgType.Control_Replicate: (
+        "standby replication needs durable/standby.py and a write-ahead "
+        "log, which multiverso_tpu_torch does not have yet"),
+    MsgType.Control_Layout: (
+        "no shard layout: shard groups (shard/) are not in "
+        "multiverso_tpu_torch yet"),
+    MsgType.Control_Migrate: (
+        "live migration needs shard/reshard.py, which multiverso_tpu_torch "
+        "does not have yet"),
+    MsgType.Control_Migrate_Cutover: (
+        "live migration needs shard/reshard.py, which multiverso_tpu_torch "
+        "does not have yet"),
+}
+
+
+class RemoteServer:
+    """Serves this process's tables to client processes over TCP (or the
+    shared-memory ring)."""
+
+    def __init__(self, zoo) -> None:
+        self._zoo = zoo
+        self._net = make_net()  # ChaosNet under fault_spec, else TcpNet
+        self._thread: Optional[threading.Thread] = None
+        self._wid_lock = threading.Lock()
+        self._next_remote = 0
+        self._free_slots: List[int] = []  # recycled by Control_Deregister
+        # slot -> the connection that registered it: a deregister is honored
+        # only from that connection, so a replayed/forged deregister cannot
+        # free a slot that was re-leased to a different client
+        self._leased: Dict[int, Any] = {}
+        # client session nonce -> worker id: the authority for
+        # reconnect-and-resume (a client proves slot ownership with the
+        # session it registered under, not with its — dead — connection)
+        self._sessions: Dict[int, int] = {}
+        # bounded idempotent-replay window: req_id -> _INFLIGHT | cached
+        # reply Message (re-sent verbatim over the replaying frame's conn)
+        self._dedup: "OrderedDict[int, Any]" = OrderedDict()
+        self._dedup_lock = threading.Lock()
+        self._dedup_max = max(16, int(config.get_flag("dedup_window")))
+        self.liveness = LivenessDetector(
+            float(config.get_flag("lease_seconds")))
+        self.endpoint: Optional[str] = None
+
+    def append_watermark(self) -> int:
+        """The primary's WAL append sequence: always -1 here (serving
+        without durability has no staleness unit; the port has no WAL)."""
+        return -1
+
+    def serve(self, endpoint: str = "127.0.0.1:0") -> str:
+        """Bind + start the pump; returns the dialable endpoint."""
+        self.endpoint = self._net.bind(0, endpoint)
+        if self._zoo.server is not None:
+            # the sync watchdog polls this to escalate stalls to evictions
+            self._zoo.server.liveness = self.liveness
+        self._thread = threading.Thread(target=self._pump, daemon=True,
+                                        name="mv-remote-serve")
+        self._thread.start()
+        return self.endpoint
+
+    def stop(self) -> None:
+        if (self._zoo.server is not None
+                and self._zoo.server.liveness is self.liveness):
+            self._zoo.server.liveness = None
+        self._net.finalize()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+
+    # -- idempotent replay ---------------------------------------------------
+    def _replayed(self, msg: Message) -> bool:
+        """True → this frame replays an already-seen request: re-send the
+        cached reply (if built) over THIS frame's connection — the original
+        may have gone to a connection that no longer exists — or swallow
+        the duplicate while the original is still in flight."""
+        if msg.req_id == 0:
+            return False
+        with self._dedup_lock:
+            hit = self._dedup.get(msg.req_id)
+            if hit is None:
+                self._dedup[msg.req_id] = _INFLIGHT
+                while len(self._dedup) > self._dedup_max:
+                    self._dedup.popitem(last=False)
+                gauge_set("SERVER_DEDUP_OCCUPANCY", len(self._dedup))
+                return False
+        count("SERVER_DEDUP_HITS")
+        hop(msg.req_id, "server_dedup_hit")
+        if hit is not _INFLIGHT:
+            try:
+                self._net.send_via(msg._conn, hit)
+            except OSError as exc:
+                log.error("remote: dedup re-reply failed: %r", exc)
+        return True
+
+    def _dedup_store(self, req_id: int, reply: Message) -> None:
+        if req_id == 0:
+            return
+        with self._dedup_lock:
+            if req_id in self._dedup:
+                self._dedup[req_id] = reply
+
+    def seed_dedup(self, seeds) -> None:
+        """Rebuild the idempotent-replay window from recovered/replicated
+        WAL records — ``(req_id, worker, msg_id)`` triples in replay
+        order. A client retransmitting an Add that was logged before the
+        crash/failover gets a synthesized ACK instead of a second apply:
+        exactly-once survives the restart. Remote Add replies are
+        ACK-shaped (the client ignores the payload), so the synthesis is
+        faithful to what the dead server would have re-sent."""
+        with self._dedup_lock:
+            for req_id, worker, msg_id in list(seeds)[-self._dedup_max:]:
+                self._dedup[int(req_id)] = Message(
+                    src=0, dst=int(worker), type=MsgType.Reply_Add,
+                    msg_id=int(msg_id), req_id=int(req_id),
+                    data=wire.encode(None))
+            while len(self._dedup) > self._dedup_max:
+                self._dedup.popitem(last=False)
+
+    def _refuse(self, msg: Message, text: str) -> None:
+        """Answer a control frame this port cannot serve with a
+        Reply_Error naming what is missing (never a silent drop)."""
+        self._net.send_via(msg._conn, Message(
+            src=0, dst=msg.src, type=MsgType.Reply_Error,
+            msg_id=msg.msg_id, req_id=msg.req_id, data=wire.encode(text)))
+
+    # -- pump ---------------------------------------------------------------
+    def _pump(self) -> None:
+        compress = bool(config.get_flag("wire_compression"))
+        while True:
+            try:
+                msg = self._net.recv()
+            except ConnectionError:
+                continue  # a client connection died; its waiters are remote
+            if msg is None:
+                return
+            try:
+                self._handle(msg, compress)
+            except Exception as exc:  # noqa: BLE001 — keep serving
+                log.error("remote server: error on %s: %r", msg.type, exc)
+                _NetCompletion(self, msg._conn, msg, False).fail(exc)
+
+    def _handle(self, msg: Message, compress: bool) -> None:
+        if msg.src >= 0:
+            # ANY frame from a worker renews its lease; dedicated
+            # heartbeats only matter while the client idles or blocks
+            self.liveness.beat(msg.src)
+        hop(msg.req_id, "server_recv")
+        if msg.type == MsgType.Control_Heartbeat:
+            return
+        if msg.type == MsgType.Control_Stats:
+            self._reply_stats(msg)
+            return
+        if msg.type in _NOT_PORTED:
+            self._refuse(msg, _NOT_PORTED[msg.type])
+            return
+        if msg.type == MsgType.Control_Watermark:
+            self._reply_watermark(msg)
+            return
+        if msg.type == MsgType.Control_Traces:
+            self._reply_traces(msg)
+            return
+        if msg.type == MsgType.Control_Profile:
+            self._reply_profile(msg)
+            return
+        if msg.type == MsgType.Request_Query:
+            self._serve_query(msg, compress)
+            return
+        if msg.type == MsgType.Control_Register:
+            if not self._replayed(msg):
+                self._register_client(msg)
+            return
+        if msg.type == MsgType.Control_Deregister:
+            self._deregister_client(msg)
+            return
+        if msg.type == MsgType.Server_Finish_Train:
+            self._zoo.server.send(Message(
+                src=msg.src, dst=-1, type=msg.type, table_id=msg.table_id,
+                msg_id=msg.msg_id))
+            return
+        if msg.type not in (MsgType.Request_Get, MsgType.Request_Add):
+            log.error("remote server: unhandled frame type %s", msg.type)
+            return
+        if self._replayed(msg):
+            return
+        request = wire.decode(msg.data)
+        completion = _NetCompletion(self, msg._conn, msg, compress)
+        # req_id rides into the dispatcher so server-side stages (gate
+        # defer/release, apply) land on the request's trace
+        forward = Message(
+            src=msg.src, dst=-1, type=msg.type, table_id=msg.table_id,
+            msg_id=msg.msg_id, req_id=msg.req_id, deadline=msg.deadline,
+            data=[request, completion])
+        hop(msg.req_id, "dispatch_enqueue")
+        self._zoo.server.send(forward)
+
+    @slot_free
+    def _serve_query(self, msg: Message, compress: bool) -> None:
+        """Request_Query: slot-free — no worker slot, no lease, no dedup
+        entry. Rides the dispatcher queue under its own type (src=-1,
+        serving lane, never clocked) so the top-k scoring serializes with
+        applies."""
+        request = wire.decode(msg.data)
+        completion = _QueryCompletion(self, msg._conn, msg, compress)
+        hop(msg.req_id, "dispatch_enqueue")
+        self._zoo.server.send(Message(
+            src=-1, dst=-1, type=MsgType.Request_Query,
+            table_id=msg.table_id, msg_id=msg.msg_id, req_id=msg.req_id,
+            deadline=msg.deadline,
+            data=[request, completion]))
+
+    @slot_free
+    def _reply_watermark(self, msg: Message) -> None:
+        """Control_Watermark: this process's position in the WAL stream —
+        slot-free like the stats probe (an operator asking 'how stale is
+        this endpoint' must get an answer even when every slot is
+        taken). A traced replica-served Get fires one of these at the
+        primary under its own req_id (the read tier's confirm leg), so
+        the reply-sent hop below is the 'primary watermark path' segment
+        of a stitched cross-process trace."""
+        watermark = self.append_watermark()
+        hop(msg.req_id, "watermark_reply_sent")
+        self._net.send_via(msg._conn, Message(
+            src=0, dst=msg.src, type=MsgType.Control_Reply_Watermark,
+            msg_id=msg.msg_id, req_id=msg.req_id, watermark=watermark,
+            trace=msg.trace,
+            data=wire.encode({"role": "primary", "watermark": watermark,
+                              "primary_watermark": watermark, "lag": 0})))
+
+    @slot_free
+    def _reply_traces(self, msg: Message) -> None:
+        """Control_Traces: ship this process's recent per-request traces
+        plus its wall clock at reply time — the pull half of fleet trace
+        stitching (obs/collector.py). Slot-free like the stats probe."""
+        from multiverso_tpu_torch.obs.trace import TRACES
+        n = max(1, int(config.get_flag("trace_export_max")))
+        self._net.send_via(msg._conn, Message(
+            src=0, dst=msg.src, type=MsgType.Control_Reply_Traces,
+            msg_id=msg.msg_id, req_id=msg.req_id,
+            data=wire.encode({"role": "primary",
+                              "endpoint": self.endpoint or "",
+                              "t_reply_ns": time.time_ns(),
+                              "traces": TRACES.export(n),
+                              # tenant tags ride as a sibling key legacy
+                              # collectors simply ignore (and legacy
+                              # senders omit — frames are unchanged)
+                              "tenants": TRACES.export_tenants(n)})))
+
+    @slot_free
+    def _reply_profile(self, msg: Message) -> None:
+        """Control_Profile: ship this process's sampling-profiler report
+        (per-thread self-time, wait-site seconds, top collapsed stacks)
+        — the pull half of fleet attribution (obs/critpath.py).
+        Slot-free like the stats probe: a profile of a wedged server is
+        worth the most exactly when every slot is taken."""
+        from multiverso_tpu_torch.obs.profiler import PROFILER
+        self._net.send_via(msg._conn, Message(
+            src=0, dst=msg.src, type=MsgType.Control_Reply_Profile,
+            msg_id=msg.msg_id, req_id=msg.req_id,
+            data=wire.encode({"role": "primary",
+                              "endpoint": self.endpoint or "",
+                              "t_reply_ns": time.time_ns(),
+                              "profile": PROFILER.report()})))
+
+    @slot_free
+    def _reply_stats(self, msg: Message) -> None:
+        """Control_Stats: ship this process's full dashboard — monitors,
+        counters, gauges, histograms as bucket arrays — back over the
+        probing connection. No worker slot, no lease, no dedup entry: a
+        stats probe must stay readable even when every slot is taken or
+        the clock gates are wedged (that is when an operator needs it)."""
+        self._net.send_via(msg._conn, Message(
+            src=0, dst=msg.src, type=MsgType.Control_Reply_Stats,
+            msg_id=msg.msg_id, req_id=msg.req_id,
+            data=wire.encode(Dashboard.snapshot())))
+
+    def _deregister_client(self, msg: Message) -> None:
+        # Graceful close. Slot recycling is async-server only: the sync
+        # server's per-worker clocks/finished flags are positional history
+        # a newcomer must not inherit, so BSP keeps the reference's
+        # static-membership contract (a departed worker's slot stays
+        # retired; crashed clients are reclaimed only by lease eviction).
+        # Only the connection that leased the slot may free it: a
+        # duplicate, forged, or replayed deregister (src=-1, a local id,
+        # a replay after the slot was re-leased) must not let two later
+        # clients share one worker id. A recycled slot DOES inherit the
+        # departed client's per-worker updater state (momentum/adagrad
+        # accumulators) — deliberate: that state is the slot's
+        # optimization history, exactly what the reference's static
+        # membership kept positional.
+        from multiverso_tpu_torch.runtime.server import SyncServer
+        slot = int(msg.src)
+        conn = getattr(msg, "_conn", None)
+        with self._wid_lock:
+            if conn is None or self._leased.get(slot) is not conn:
+                log.error("remote: ignoring deregister for slot %d "
+                          "(not leased to this connection)", slot)
+                return
+            self.liveness.forget(slot)
+            # drop session claims on the slot so a stale client cannot
+            # resume a slot later re-leased to someone else
+            self._sessions = {s: w for s, w in self._sessions.items()
+                              if w != slot}
+            if not isinstance(self._zoo.server, SyncServer):
+                del self._leased[slot]
+                self._free_slots.append(slot)
+
+    def _resume_slot(self, session: int, resume: int,
+                     msg: Message) -> Optional[str]:
+        """Validate a reconnect-and-resume claim (``_wid_lock`` held);
+        returns a refusal message or None (granted, caller re-leases).
+        The session nonce — not the connection, which is typically dead —
+        is the authority for slot ownership."""
+        base = self._zoo.num_workers - self._zoo.remote_workers
+        idx = resume - base
+        if not 0 <= idx < self._zoo.remote_workers:
+            return f"cannot resume worker {resume}: not a remote slot"
+        if self.liveness.is_evicted(resume):
+            return (f"worker {resume} was evicted (lease expired); its "
+                    "round-clock history is retired — register fresh")
+        if session and self._sessions.get(session) == resume:
+            return None  # the same client reclaiming its own slot
+        held = self._leased.get(resume)
+        if held is msg._conn:
+            return None  # replayed register on the same connection
+        if held is None:
+            # unleased: a restarted server (empty lease table) or a
+            # gracefully-freed slot; account it as taken
+            if idx >= self._next_remote:
+                for skipped in range(self._next_remote, idx):
+                    self._free_slots.append(base + skipped)
+                self._next_remote = idx + 1
+            elif resume in self._free_slots:
+                self._free_slots.remove(resume)
+            else:
+                return f"worker slot {resume} is not resumable"
+            return None
+        return f"worker slot {resume} is leased to another client"
+
+    def _register_reply(self, msg: Message, payload: Any) -> None:
+        reply = Message(src=msg.dst, dst=msg.src,
+                        type=MsgType.Control_Reply_Register,
+                        msg_id=msg.msg_id, req_id=msg.req_id,
+                        data=wire.encode(payload))
+        self._dedup_store(msg.req_id, reply)
+        self._net.send_via(msg._conn, reply)
+
+    def _register_client(self, msg: Message) -> None:
+        info = wire.decode(msg.data)
+        info = info if isinstance(info, dict) else {}
+        session = int(info.get("session", 0))
+        resume = int(info.get("resume", -1))
+        base = self._zoo.num_workers - self._zoo.remote_workers
+        with self._wid_lock:
+            if resume >= 0:
+                refusal = self._resume_slot(session, resume, msg)
+                if refusal is not None:
+                    self._register_reply(msg, {"error": refusal})
+                    return
+                worker_id = resume
+            elif self._free_slots:
+                worker_id = self._free_slots.pop()
+            elif self._next_remote >= self._zoo.remote_workers:
+                # refuse: an out-of-range worker id would alias slot-0
+                # per-worker state and bypass the BSP clocks
+                self._register_reply(msg, {"error": (
+                    f"all {self._zoo.remote_workers} remote worker slots "
+                    "are taken (raise the remote_workers flag at init)")})
+                return
+            else:
+                worker_id = base + self._next_remote
+                self._next_remote += 1
+            self._leased[worker_id] = msg._conn
+            if session:
+                self._sessions[session] = worker_id
+        self.liveness.register(worker_id)
+        directory = []
+        # snapshot: create_table on the main thread mutates the dict
+        for table_id, table in list(self._zoo.server._tables.items()):
+            spec = table.remote_spec()
+            if spec is not None:
+                directory.append({"table_id": table_id, **spec})
+        self._register_reply(msg, {"worker_id": worker_id,
+                                   "num_workers": self._zoo.num_workers,
+                                   "tables": directory})
+
+
+# -- one-shot control probes --------------------------------------------------
+
+def control_probe(endpoint: str, request_type: MsgType,
+                  reply_type: MsgType, timeout: float = 10.0,
+                  what: str = "probe", payload: Any = None) -> Any:
+    """Dial ``endpoint``, send one control frame, return the decoded
+    reply payload. The shared skeleton under the stats and layout RPCs —
+    deliberately NOT a RemoteClient: no worker slot, no lease, no chaos
+    transport, because a diagnostic/bootstrap probe must work when the
+    data plane is the thing being diagnosed. A ``Reply_Error`` answer
+    (e.g. asking a non-member for a shard layout) raises RuntimeError
+    with the server's message."""
+    net = TcpNet()
+    net.rank = -1
+    net.connect([endpoint])
+    msg_id = next_msg_id()
+    got = threading.Event()
+    box: Dict[str, Message] = {}
+
+    def pump() -> None:
+        try:
+            while True:
+                msg = net.recv()
+                if msg is None:
+                    return
+                if msg.msg_id == msg_id:
+                    box["reply"] = msg
+                    got.set()
+                    return
+        except ConnectionError:
+            got.set()
+
+    threading.Thread(target=pump, daemon=True,
+                     name=f"mv-{what}-probe").start()
+    try:
+        net.send(Message(src=-1, dst=0, type=request_type, msg_id=msg_id,
+                         data=wire.encode(payload)
+                         if payload is not None else []))
+        if not got.wait(timeout):
+            raise TimeoutError(f"{what} probe to {endpoint} timed out "
+                               f"after {timeout:.1f}s")
+    finally:
+        net.finalize()
+    reply = box.get("reply")
+    if reply is None:
+        raise ConnectionError(f"{what} probe to {endpoint}: connection "
+                              "lost before the reply")
+    if reply.type == MsgType.Reply_Error:
+        raise RuntimeError(f"{what} probe to {endpoint} refused: "
+                           f"{wire.decode(reply.data)}")
+    if reply.type != reply_type:
+        raise RuntimeError(f"{what} probe to {endpoint}: unexpected reply "
+                           f"{reply.type}")
+    return wire.decode(reply.data)
+
+
+def fetch_watermark(endpoint: str, timeout: float = 10.0) -> Dict[str, Any]:
+    """One-shot watermark probe: ``{"role": "primary"|"replica",
+    "watermark": <applied/append seq>, "primary_watermark": <append seq
+    observed>, "lag": <records behind>}`` — the staleness position of any
+    serving endpoint (primary or read replica), slot-free."""
+    return control_probe(endpoint, MsgType.Control_Watermark,
+                         MsgType.Control_Reply_Watermark,
+                         timeout=timeout, what="watermark")
+
+
+def fetch_stats(endpoint: str, timeout: float = 10.0) -> StatsSnapshot:
+    """One-shot live stats RPC: the server's dashboard as a
+    :class:`StatsSnapshot` (histograms rebuilt from their bucket arrays,
+    so p50/p95/p99 compute caller-side on the server's exact counts)."""
+    return StatsSnapshot(control_probe(endpoint, MsgType.Control_Stats,
+                                       MsgType.Control_Reply_Stats,
+                                       timeout=timeout, what="stats"))
+
+
+# -- client side -------------------------------------------------------------
+
+class RemoteChannel:
+    """WorkerTable request channel that frames requests over TCP."""
+
+    def __init__(self, client: "RemoteClient") -> None:
+        self._client = client
+
+    def worker_id(self) -> int:
+        return self._client.worker_id
+
+    def submit(self, table_id: int, msg_type: MsgType, request: Any,
+               msg_id: int, completion: Completion) -> None:
+        self._client._send(table_id, msg_type, request, msg_id, completion)
+
+    def post(self, table_id: int, msg_type: MsgType) -> None:
+        self._client._send(table_id, msg_type, None, next_msg_id(), None)
+
+
+class _Inflight:
+    """One outstanding correlated request: the framed message (for
+    retransmission) plus its retry clock. ``first`` is the issue time —
+    the request-latency histogram measures from here, so retransmits
+    lengthen (never reset) the observed latency."""
+
+    __slots__ = ("msg", "sent", "first", "attempts")
+
+    def __init__(self, msg: Message, sent: float) -> None:
+        self.msg = msg
+        self.sent = sent
+        self.first = sent
+        self.attempts = 0
+
+
+class RemoteClient:
+    """Table client of a serving process: register → worker id + table
+    directory.
+
+    Survives faults (``docs/fault_tolerance.md``): correlated requests are
+    kept in an inflight set and retransmitted on reply timeout
+    (``request_retry_seconds``) or after reconnect-and-resume
+    (``reconnect_deadline_seconds``); the server's dedup window keeps every
+    replay idempotent. A maintenance thread renews the worker's lease with
+    heartbeats. ``reconnect_deadline_seconds=0`` restores the fail-fast
+    posture: any connection loss fails all pending requests immediately.
+
+    The read tier (``read_endpoints=``/``read_preference=``: replica-first
+    Gets through ``runtime/read.py``'s ``ReadRouter``) is not ported yet;
+    asking for it raises before anything connects."""
+
+    def __init__(self, endpoint: str, timeout: float = 30.0,
+                 read_endpoints: Optional[List[str]] = None,
+                 read_preference: Optional[str] = None) -> None:
+        if read_endpoints or read_preference is not None:
+            raise NotImplementedError(
+                "read_endpoints= and read_preference= need the read tier "
+                "(runtime/read.py, ReadRouter), which multiverso_tpu_torch "
+                "does not have yet; connect without them to read from the "
+                "primary")
+        self._net = make_net()
+        self._net.rank = -1
+        self._net.connect([endpoint])
+        self._pending: Dict[int, Completion] = {}
+        self._inflight: Dict[int, _Inflight] = {}
+        self._lock = threading.Lock()
+        self._compress = bool(config.get_flag("wire_compression"))
+        self._trace = bool(config.get_flag("trace_requests"))
+        # 31-bit nonzero session nonce: req_id = (session << 32) | seq
+        # stays within the header's signed 64-bit field
+        self._session = random.getrandbits(31) | 1
+        self._req_seq = itertools.count(1)
+        self._closed = False
+        self._recovering = False
+        self._recover_lock = threading.Lock()
+        self._stop_maint = threading.Event()
+        self._hb_period = float(config.get_flag("heartbeat_seconds"))
+        self._rto = float(config.get_flag("request_retry_seconds"))
+        # overload survival (fault/retry.py): deadline budget stamped on
+        # every correlated request (0 = none), a success-refilled retry
+        # budget governing retransmits + read hedges, and a circuit
+        # breaker that fails writes fast while the server is suspect.
+        # Defaults leave all three inert.
+        self._deadline_budget = float(
+            config.get_flag("request_deadline_seconds"))
+        self._retry_budget = RetryBudget.from_flags()
+        self._breaker = CircuitBreaker.from_flags()
+        self._pump_thread = threading.Thread(
+            target=self._pump, daemon=True, name="mv-remote-client")
+        self._pump_thread.start()
+        self.worker_id = -1
+        self.directory: List[Dict[str, Any]] = []
+        self.num_workers = 0
+        try:
+            self._register(timeout)
+        except BaseException:
+            self._net.finalize()
+            raise
+        self._channel = RemoteChannel(self)
+        self._start_maintenance()
+
+    # -- lifecycle -----------------------------------------------------------
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._stop_maint.set()
+        try:
+            self._net.send(Message(src=self.worker_id, dst=0,
+                                   type=MsgType.Control_Deregister,
+                                   msg_id=next_msg_id()))
+        except OSError:
+            pass  # server already gone; slot stays leased (static membership)
+        self._net.finalize()
+
+    def _next_req_id(self) -> int:
+        return (self._session << 32) | (next(self._req_seq) & 0xFFFFFFFF)
+
+    def _register(self, timeout: float, resume: bool = False) -> None:
+        """Register (or resume) this client's worker slot. The request is
+        re-sent once a second until the reply lands or ``timeout`` passes —
+        registration rides the same lossy wire as everything else, and the
+        server's dedup window makes the replay idempotent."""
+        msg_id = next_msg_id()
+        completion = Completion()
+        with self._lock:
+            self._pending[msg_id] = completion
+        payload: Dict[str, Any] = {"session": self._session}
+        if resume:
+            payload["resume"] = self.worker_id
+        msg = Message(src=self.worker_id if resume else -1, dst=0,
+                      type=MsgType.Control_Register, msg_id=msg_id,
+                      req_id=self._next_req_id(), data=wire.encode(payload))
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                self._net.send(msg)
+                info = completion.wait(
+                    min(1.0, max(0.05, deadline - time.monotonic())))
+                break
+            except TimeoutError:  # before OSError: TimeoutError IS one
+                if time.monotonic() >= deadline:
+                    with self._lock:
+                        self._pending.pop(msg_id, None)
+                    raise TimeoutError(
+                        "remote registration timed out") from None
+            except OSError:
+                with self._lock:
+                    self._pending.pop(msg_id, None)
+                raise  # caller's retry loop owns the backoff
+        if "error" in info:
+            raise RuntimeError(f"remote registration refused: {info['error']}")
+        self.worker_id = int(info["worker_id"])
+        self.num_workers = int(info["num_workers"])
+        self.directory = info["tables"]
+
+    # -- request path --------------------------------------------------------
+    def _send(self, table_id: int, msg_type: MsgType, request: Any,
+              msg_id: int, completion: Optional[Completion],
+              deadline: Optional[float] = None) -> int:
+        """Returns the req_id the request was issued under (0 for
+        fire-and-forget posts). ``deadline`` is an absolute monotonic
+        instant (None = mint one from the request_deadline_seconds flag;
+        0.0 = explicitly none)."""
+        if completion is not None and msg_type in (MsgType.Request_Get,
+                                                   MsgType.Request_Add,
+                                                   MsgType.Request_Query):
+            if deadline is None:
+                deadline = (time.monotonic() + self._deadline_budget
+                            if self._deadline_budget > 0 else 0.0)
+            if deadline > 0 and deadline <= time.monotonic():
+                # the caller's budget is already gone: spending a round
+                # trip to learn that would be the overload amplifier this
+                # layer exists to remove
+                count("DEADLINE_EXPIRED_AT_SEND")
+                completion.fail(RuntimeError(
+                    f"deadline_exceeded: {msg_type.name} expired before "
+                    "send"))
+                return 0
+            if not self._breaker.allow():
+                # tripped breaker: fail fast with the truth instead of
+                # queueing onto a server we believe is down
+                count("BREAKER_FAST_FAILS")
+                completion.fail(RuntimeError(
+                    "circuit open: server connection suspect after "
+                    "consecutive failures; failing fast (half-open probe "
+                    f"in <= {self._breaker.reset_seconds:.1f}s)"))
+                return 0
+        data = [] if request is None and msg_type not in (
+            MsgType.Request_Get, MsgType.Request_Add) else wire.encode(
+                request, compress=self._compress)
+        msg = Message(src=self.worker_id, dst=0, type=msg_type,
+                      table_id=table_id, msg_id=msg_id,
+                      deadline=deadline if deadline is not None else 0.0,
+                      req_id=self._next_req_id() if completion is not None
+                      else 0,
+                      trace=self._trace and completion is not None,
+                      data=data)
+        with self._lock:
+            if completion is not None:
+                self._pending[msg_id] = completion
+                self._inflight[msg_id] = _Inflight(msg, time.monotonic())
+                gauge_set("CLIENT_INFLIGHT", len(self._inflight))
+                hop(msg.req_id, "client_send")
+                if msg_type in (MsgType.Request_Get, MsgType.Request_Add,
+                                MsgType.Request_Query):
+                    # chargeback plane: stamp the span with its tenant and
+                    # meter the payload bytes it pushed onto the wire
+                    tenant = resolve_tenant(table_id)
+                    tag_tenant(msg.req_id, tenant)
+                    count(f"TENANT_{tenant}_BYTES",
+                          sum(int(getattr(b, "nbytes", 0) or len(b))
+                              for b in data))
+            if self._recovering:
+                # recovery retransmits the whole inflight set (in req_id
+                # order) once re-registered; sending now would race it
+                return msg.req_id
+        try:
+            self._net.send(msg)
+        except OSError:
+            if completion is None:
+                raise  # fire-and-forget posts keep the fail-loud contract
+            self._start_recovery()  # the request stays inflight; recovery
+            # (or its deadline) settles the completion
+        return msg.req_id
+
+    def _pump(self) -> None:
+        while True:
+            try:
+                msg = self._net.recv()
+            except ConnectionError:
+                if not self._closed:
+                    self._start_recovery()
+                continue
+            if msg is None:
+                self._fail_all(ConnectionError("remote client shut down"))
+                return
+            with self._lock:
+                completion = self._pending.pop(msg.msg_id, None)
+                flight = self._inflight.pop(msg.msg_id, None)
+                gauge_set("CLIENT_INFLIGHT", len(self._inflight))
+            if completion is None:
+                continue  # duplicate reply (retransmit + dedup): settled
+            # ANY correlated reply — success or server-side error — proves
+            # the connection lives: refill the retry budget, feed the
+            # breaker (its failure signal is silence, not error payloads)
+            self._retry_budget.on_success()
+            self._breaker.record_success()
+            if flight is not None:
+                # end-to-end request latency, retransmits included — the
+                # distribution mv.stats() reports as CLIENT_REQUEST_SECONDS
+                observe("CLIENT_REQUEST_SECONDS",
+                        time.monotonic() - flight.first)
+            hop(msg.req_id, "client_reply")
+            try:
+                if msg.type == MsgType.Reply_Error:
+                    text = wire.decode(msg.data)
+                    if (isinstance(text, str) and text.startswith("shed:")
+                            and flight is not None
+                            and flight.msg.type == MsgType.Request_Add):
+                        # admission-shed training write: the graceful-
+                        # degradation contract — the delta is DROPPED (a
+                        # lost async gradient, Downpour-tolerated), the
+                        # caller is not errored, the shed is counted
+                        count("CLIENT_ADDS_SHED")
+                        completion.done(None)
+                    else:
+                        completion.fail(RuntimeError(
+                            f"server-side failure: {text}"))
+                elif msg.type == MsgType.Reply_Add:
+                    completion.done(None)
+                else:
+                    completion.done(wire.decode(msg.data))
+            except Exception as exc:  # noqa: BLE001 — a malformed reply must
+                # fail its waiter, not kill the pump (which would hang every
+                # later request forever)
+                completion.fail(exc)
+
+    # -- fault recovery ------------------------------------------------------
+    def _start_recovery(self) -> None:
+        # connection loss is the strongest failure signal the breaker gets
+        self._breaker.record_failure()
+        with self._recover_lock:
+            if self._recovering or self._closed:
+                return
+            self._recovering = True
+        threading.Thread(target=self._recover, daemon=True,
+                         name="mv-remote-reconnect").start()
+
+    def _recover(self) -> None:
+        """Reconnect-and-resume: re-register under the same session (the
+        server re-leases the same worker id) with backoff until the
+        deadline, then retransmit every inflight request in issue order —
+        the server's dedup window drops the ones that already applied.
+        Deadline exhaustion (or a refusal — evicted slot, capacity) fails
+        all pending requests with a clean error: the fail-fast
+        behavior, just ``reconnect_deadline_seconds`` later."""
+        policy = RetryPolicy.from_flags()
+        last_error: BaseException = ConnectionError("connection lost")
+        resumed = False
+        try:
+            for _attempt, remaining in policy.attempts():
+                if self._closed:
+                    return
+                try:
+                    self._register(timeout=min(2.0, max(0.1, remaining)),
+                                   resume=True)
+                except RuntimeError as exc:
+                    self._fail_all(exc)  # refused: permanent, stop retrying
+                    return
+                except (OSError, TimeoutError) as exc:
+                    last_error = exc
+                    continue
+                with self._lock:
+                    backlog = sorted(self._inflight.values(),
+                                     key=lambda f: f.msg.req_id)
+                    # cleared under _lock: a concurrent _send either saw
+                    # _recovering and left its message to this backlog, or
+                    # runs after the backlog went out — never both
+                    self._recovering = False
+                    resumed = True
+                    now = time.monotonic()
+                    for flight in backlog:
+                        flight.attempts += 1
+                        flight.sent = now
+                        hop(flight.msg.req_id, "client_resume_retransmit")
+                        try:
+                            self._net.send(flight.msg)
+                        except OSError as exc:
+                            # died again mid-resume: the pump's next
+                            # sentinel starts a fresh recovery; unsent
+                            # entries stay inflight for it
+                            last_error = exc
+                            break
+                count("CLIENT_RECONNECTS")
+                log.info("remote client %d: reconnected, %d request(s) "
+                         "retransmitted", self.worker_id, len(backlog))
+                return
+            self._fail_all(ConnectionError(
+                "server connection lost; reconnect gave up after "
+                f"{policy.deadline:.1f}s (last error: {last_error!r})"))
+        finally:
+            if not resumed:
+                with self._recover_lock:
+                    self._recovering = False
+
+    def _start_maintenance(self) -> None:
+        """Heartbeats (lease renewal) + reply-timeout retransmission; no
+        thread at all when both are disabled."""
+        periods = [p for p in (self._hb_period, self._rto) if p > 0]
+        if not periods:
+            return
+        tick = max(0.05, min(min(periods) / 4.0, 1.0))
+        threading.Thread(target=self._maintain, args=(tick,), daemon=True,
+                         name="mv-remote-maint").start()
+
+    def _maintain(self, tick: float) -> None:
+        last_beat = 0.0
+        while not self._stop_maint.wait(tick):
+            if self._closed:
+                return
+            if self._recovering:
+                continue  # recovery owns the connection right now
+            now = time.monotonic()
+            if (self._hb_period > 0 and self.worker_id >= 0
+                    and now - last_beat >= self._hb_period):
+                last_beat = now
+                try:
+                    self._net.send(Message(
+                        src=self.worker_id, dst=0,
+                        type=MsgType.Control_Heartbeat,
+                        msg_id=next_msg_id()))
+                except OSError:
+                    self._start_recovery()
+                    continue
+            if self._rto > 0:
+                self._retransmit_stale(now)
+
+    def _retransmit_stale(self, now: float) -> None:
+        """Re-send correlated requests whose reply is overdue (per-request
+        exponential backoff on the timeout). Safe against legitimately
+        slow replies — a BSP-gated Get, a busy dispatcher — because the
+        server's dedup window swallows the replay."""
+        with self._lock:
+            if self._recovering:
+                return
+            stale = []
+            for f in self._inflight.values():
+                if now - f.sent < self._rto * min(2 ** f.attempts, 16):
+                    continue
+                # every overdue reply is a failure datapoint for the
+                # breaker whether or not the retransmit is admitted
+                self._breaker.record_failure()
+                if not self._retry_budget.allow():
+                    # dry retry budget DEFERS (never fails): sent/attempts
+                    # stay put, so the flight re-qualifies next tick and
+                    # retries once successes refill the bucket
+                    break
+                f.attempts += 1
+                f.sent = now
+                stale.append(f)
+        for flight in stale:
+            count("CLIENT_RETRIES")
+            hop(flight.msg.req_id, "client_retransmit")
+            log.debug("remote client %d: retransmitting %s (attempt %d)",
+                      self.worker_id, flight.msg.type, flight.attempts)
+            try:
+                self._net.send(flight.msg)
+            except OSError:
+                self._start_recovery()
+                return
+
+    def _fail_all(self, exc: BaseException) -> None:
+        with self._lock:
+            pending = list(self._pending.values())
+            self._pending.clear()
+            self._inflight.clear()
+            gauge_set("CLIENT_INFLIGHT", 0)
+        if pending:
+            # unclean end of session: every in-flight request dies with
+            # this error — capture the hop traces while they are fresh
+            flight_dump("client_fail_all", worker=self.worker_id,
+                        pending=len(pending), error=repr(exc))
+        for completion in pending:
+            completion.fail(exc)
+
+    # -- table proxies -------------------------------------------------------
+    def table(self, table_id: int) -> WorkerTable:
+        """Build the worker proxy matching the server table's directory
+        entry. Proxies share all shaping code with the in-process workers."""
+        spec = next((s for s in self.directory
+                     if s["table_id"] == table_id), None)
+        if spec is None:
+            raise KeyError(f"no remotable table with id {table_id}; "
+                           f"directory: {self.directory}")
+        kind = spec["kind"]
+        if kind == "array":
+            return _RemoteArrayWorker(spec, table_id, self._channel)
+        if kind == "matrix":
+            return _RemoteMatrixWorker(spec, table_id, self._channel)
+        if kind == "kv":
+            return _RemoteKVWorker(spec, table_id, self._channel)
+        if kind == "sparse":
+            return _RemoteSparseWorker(spec, table_id, self._channel)
+        raise KeyError(f"unknown remote table kind {kind!r}")
+
+    def tables(self) -> List[WorkerTable]:
+        return [self.table(s["table_id"]) for s in self.directory]
+
+
+def _make_error_feedback(shape, dtype) -> Optional[Any]:
+    """Per-proxy ErrorFeedback when -wire_quant_bits is set (float32
+    tables only — quantization targets gradient-delta payloads)."""
+    bits = int(config.get_flag("wire_quant_bits"))
+    if bits <= 0 or np.dtype(dtype) != np.float32:
+        return None
+    from multiverso_tpu_torch.utils.quantization import ErrorFeedback
+    return ErrorFeedback(shape, bits)
+
+
+class _RemoteArrayWorker(ArrayWorker):
+    """ArrayWorker shaping over the wire (no server construction)."""
+
+    def __init__(self, spec, table_id: int, channel: RemoteChannel) -> None:
+        WorkerTable.__init__(self, channel=channel)
+        self.table_id = table_id
+        self.size = int(spec["size"])
+        self.dtype = np.dtype(spec["dtype"])
+        self._ef = _make_error_feedback((self.size,), self.dtype)
+
+    def _submit(self, msg_type, request):
+        # quantize ADD deltas on the way out (error feedback keeps the
+        # lost precision in the client residual) — the server decodes to
+        # plain float32 before process_add
+        if (self._ef is not None and msg_type == MsgType.Request_Add
+                and isinstance(request, tuple) and len(request) >= 2
+                and isinstance(request[0], np.ndarray)
+                and request[0].dtype == np.float32):
+            request = (self._ef.compress(request[0]),) + request[1:]
+        return super()._submit(msg_type, request)
+
+    # device IO is in-process only (a remote hop IS a host hop); without
+    # this override the class attribute inherited from ArrayWorker would
+    # send per-leaf device requests over TCP
+    supports_device_io = False
+
+    def get_device(self):
+        raise RuntimeError("get_device() needs the table in this process; "
+                           "remote clients hold no table state — use get()")
+
+    def get_device_async(self, option=None):
+        log.fatal("device IO is in-process only; remote tables use "
+                  "get/get_async (host arrays)")
+
+    def add_device_async(self, delta, option=None):
+        log.fatal("device IO is in-process only; remote tables use "
+                  "add/add_async (host arrays)")
+
+    def sync_leaves_async(self, delta_leaves, option=None, last_leaves=None):
+        log.fatal("device IO is in-process only; remote tables use "
+                  "add/add_async (host arrays)")
+
+    def push_leaves_async(self, new_leaves, last_leaves, option=None):
+        log.fatal("device IO is in-process only; remote tables use "
+                  "add/add_async (host arrays)")
+
+    def get_leaves_async(self, template_leaves, option=None):
+        log.fatal("device IO is in-process only; remote tables use "
+                  "get/get_async (host arrays)")
+
+
+class _RemoteMatrixWorker(MatrixWorker):
+    """MatrixWorker shaping (row buckets, sparse cache, option defaults)
+    over the wire. Device IO is in-process only (the whole point is
+    skipping the host hop; a remote hop IS a host hop) — callers branch on
+    ``supports_device_io``."""
+
+    supports_device_io = False
+
+    def get_device_async(self, row_ids, option=None):
+        log.fatal("device IO is in-process only; remote tables use "
+                  "get/get_async (host arrays)")
+
+    def transact_device_async(self, fn, others, args=(), touched=None):
+        log.fatal("device IO is in-process only; remote tables use "
+                  "add/add_async (host arrays)")
+
+    def add_device_async(self, values, row_ids, option=None):
+        log.fatal("device IO is in-process only; remote tables use "
+                  "add/add_async (host arrays)")
+
+    def __init__(self, spec, table_id: int, channel: RemoteChannel) -> None:
+        WorkerTable.__init__(self, channel=channel)
+        self.table_id = table_id
+        self.num_row = int(spec["num_row"])
+        self.num_col = int(spec["num_col"])
+        self.dtype = np.dtype(spec["dtype"])
+        self._ef = _make_error_feedback((self.num_row, self.num_col),
+                                        self.dtype)
+        self.is_sparse = bool(spec.get("is_sparse", False))
+        self._init_client_state(bool(spec.get("is_pipelined", False)),
+                                int(spec.get("num_workers", 1)))
+
+    def _submit(self, msg_type, request):
+        # quantize row-delta ADDs with per-row error feedback (whole-table
+        # adds use ids=None -> full-shape residual)
+        if (self._ef is not None and msg_type == MsgType.Request_Add
+                and isinstance(request, tuple) and len(request) == 3
+                and isinstance(request[1], np.ndarray)
+                and request[1].dtype == np.float32):
+            ids, values, option = request
+            if ids is not None:
+                ids, values = merge_duplicate_rows(ids, values)
+            request = (ids, self._ef.compress(values, ids), option)
+        return super()._submit(msg_type, request)
+
+    def get_device(self):
+        raise RuntimeError("get_device() needs the table in this process; "
+                           "remote clients hold no table state — use get()")
+
+
+class _RemoteKVWorker(KVWorker):
+    def __init__(self, spec, table_id: int, channel: RemoteChannel) -> None:
+        WorkerTable.__init__(self, channel=channel)
+        self.table_id = table_id
+        self.value_dtype = np.dtype(spec["dtype"])
+        self._raw: Dict[int, Any] = {}
+
+
+class _RemoteSparseWorker(SparseWorker):
+    """Sparse-key table shaping (O(nnz) get/add, counters) over the wire."""
+
+    def __init__(self, spec, table_id: int, channel: RemoteChannel) -> None:
+        WorkerTable.__init__(self, channel=channel)
+        self.table_id = table_id
+        self.key_space = int(spec["key_space"])
+        self.width = int(spec["width"])
+        self.dtype = np.dtype(spec["dtype"])
+        self.elements_pushed = 0
+        self.elements_pulled = 0

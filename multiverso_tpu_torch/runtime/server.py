@@ -16,12 +16,24 @@ rounds of every worker's Adds*), backup workers and a stall watchdog;
 slowest. None of them fuses Adds. A top-k query (``Request_Query``) is
 served on the dispatcher like a Get but passes every round gate.
 
-Not yet ported, each for its own slice: admission control, priority lanes,
-deadlines, the write-ahead log (the JAX servers append to it where they
-apply or accept an Add), trace hops and the flight recorder, profiler wait
-sites, and the sync watchdog's lease reaping and worker eviction (they need
-remote liveness). With their defaults the first five admit every message in
-arrival order and record nothing, so leaving them out changes no result.
+Around each drain the dispatcher does what the JAX one does: a profiler
+wait site (``dispatcher_drain``) around the queue pop, a stable sort into
+priority lanes (``priority_lanes``; not on the deterministic server), and
+the admission filter (``_admit``): expired-deadline Gets and Adds fail with
+:class:`DeadlineExceeded`, refusals of the gate (backlog shedding, tenant
+quotas) with :class:`ShedError`. Wire requests leave trace hops at apply,
+serve and the round gates. The sync watchdog reaps expired remote leases
+(``liveness``, attached by the remote server) and evicts the dead worker
+from the round gates with a flight-recorder dump. In-process requests carry
+``req_id == 0`` and no deadline, so the admission filter and the traces
+pass them untouched. The lane sort does reorder: a query, or a Get from
+the administrative context (worker id -1), drained together with queued
+Adds is answered before them, as the JAX dispatcher does by default.
+
+Not yet ported: the write-ahead log hooks (the JAX servers append a wire
+Add to the log where they apply or accept it; ``serve`` refuses a set
+``wal_dir`` flag), and the read tier (``runtime/read.py``), whose replica
+forwards reach the dispatcher as slot-free Gets.
 """
 
 from __future__ import annotations
@@ -31,8 +43,13 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from multiverso_tpu_torch import config, log
-from multiverso_tpu_torch.dashboard import (Dashboard, gauge_set, log_bounds,
-                                            monitor, observe)
+from multiverso_tpu_torch.dashboard import (Dashboard, count, gauge_set,
+                                            log_bounds, monitor, observe)
+from multiverso_tpu_torch.obs.profiler import clear_wait, mark_wait
+from multiverso_tpu_torch.obs.trace import flight_dump, hop
+from multiverso_tpu_torch.runtime.admission import (AdmissionGate,
+                                                    DeadlineExceeded,
+                                                    ShedError, lane_order)
 from multiverso_tpu_torch.runtime.contracts import dispatcher_only
 from multiverso_tpu_torch.runtime.message import Message, MsgType
 from multiverso_tpu_torch.utils import MtQueue
@@ -46,6 +63,20 @@ def _apply_metrics():
             Dashboard.counter("APPLY_BATCHED_MSGS"),
             Dashboard.histogram("APPLY_BATCH_ROWS", bounds=log_bounds(lowest=1.0)),
             Dashboard.gauge("SERVER_QUEUE_DEPTH"))
+
+
+class _NullCompletion:
+    """Fire-and-forget completion for dispatcher work the runtime makes
+    itself (watchdog evictions): the dispatcher's guard logs errors,
+    nobody waits."""
+
+    __slots__ = ()
+
+    def done(self, result) -> None:
+        pass
+
+    def fail(self, error: BaseException) -> None:
+        pass
 
 
 class _ExecWaiter:
@@ -92,6 +123,11 @@ class Server:
     gates_gets = False
     defers_adds = False
     fuses_adds = True
+    # reorders_lanes: the drain may stably sort a drained batch into
+    # priority lanes (serving reads > control > training writes). The
+    # deterministic server keeps it False, as in the JAX package (its
+    # arrival order is the log's order there).
+    reorders_lanes = True
 
     @property
     def plain_async(self) -> bool:
@@ -117,6 +153,16 @@ class Server:
         self._apply_batch_cap = max(0, int(config.get_flag("apply_batch_msgs")))
         self._flag_unsub = config.FLAGS.on_change(
             "apply_batch_msgs", self._on_batch_cap_change)
+        # heartbeat/lease tracker of the remote workers, attached by the
+        # RemoteServer when it starts serving (fault/detector.py); only
+        # the sync watchdog acts on it
+        self.liveness = None
+        # overload survival (runtime/admission.py): the drain-time gate
+        # (backlog shedding, tenant write quotas) and the lane sort; flags
+        # read once here, and the defaults admit everything
+        self.admission = AdmissionGate.from_flags()
+        self._lane_sort = (self.reorders_lanes
+                           and bool(config.get_flag("priority_lanes")))
 
     def _on_batch_cap_change(self, _name: str, value) -> None:
         self._apply_batch_cap = max(0, int(value))
@@ -175,16 +221,52 @@ class Server:
         queue_gauge = _apply_metrics()[3]
         while True:
             fuse = self.fuses_adds and self._apply_batch_cap > 0
-            msgs = self._queue.pop_all()
+            # profiler wait site: an idle dispatcher parks here
+            prev_wait = mark_wait("dispatcher_drain")
+            try:
+                msgs = self._queue.pop_all()
+            finally:
+                clear_wait(prev_wait)
             if msgs is None:
                 return
             # depth AFTER the drain = requests that arrived behind this batch
             queue_gauge.set(self._queue.size())
+            if self._lane_sort and len(msgs) > 1:
+                msgs = lane_order(msgs)
+            msgs = self._admit(msgs)
             if fuse and len(msgs) > 1:
                 self._dispatch_batch(msgs)
             else:
                 for msg in msgs:
                     self._dispatch_guarded(msg)
+
+    def _admit(self, msgs: List[Message]) -> List[Message]:
+        """Drain-time overload filter: drop expired-deadline Gets and Adds
+        (their caller stopped waiting) and ask the admission gate about the
+        rest. Both refusals answer the completion truthfully
+        (``deadline_exceeded: ...`` / ``shed: ...``). Depth is this batch
+        plus what queued behind it."""
+        depth = len(msgs) + self._queue.size()
+        now = time.monotonic()
+        admitted: List[Message] = []
+        for msg in msgs:
+            if 0.0 < msg.deadline < now and msg.type in (
+                    MsgType.Request_Get, MsgType.Request_Add):
+                count("DEADLINE_EXPIRED_DROPS")
+                hop(msg.req_id, "deadline_drop")
+                if msg.data and hasattr(msg.data[-1], "fail"):
+                    msg.data[-1].fail(DeadlineExceeded(
+                        f"deadline_exceeded: {msg.type.name} expired "
+                        f"{now - msg.deadline:.3f}s before apply "
+                        f"(backlog {depth})"))
+                continue
+            text = self.admission.refusal(msg, depth)
+            if text is not None:
+                if msg.data and hasattr(msg.data[-1], "fail"):
+                    msg.data[-1].fail(ShedError(text))
+                continue
+            admitted.append(msg)
+        return admitted
 
     def _dispatch_guarded(self, msg: Message) -> None:
         try:
@@ -268,6 +350,8 @@ class Server:
             self._dispatch_guarded(msgs[0])
             return 1
         msgs = msgs[:consumed]
+        for msg in msgs:
+            hop(msg.req_id, "apply_add")
         fused_c, batched_c, rows_h, _gauge = _apply_metrics()
         try:
             with monitor("SERVER_PROCESS_ADD_MSG"):
@@ -311,6 +395,7 @@ class Server:
     def _process_add(self, msg: Message) -> None:
         with monitor("SERVER_PROCESS_ADD_MSG"):
             request, completion = msg.data
+            hop(msg.req_id, "apply_add")
             # process_add may return a fused-get payload (ArrayTable's
             # add+get sync path); plain adds return None
             completion.done(self._tables[msg.table_id].process_add(request))
@@ -318,6 +403,7 @@ class Server:
     def _process_get(self, msg: Message) -> None:
         with monitor("SERVER_PROCESS_GET_MSG"):
             request, completion = msg.data
+            hop(msg.req_id, "serve_get")
             completion.done(self._tables[msg.table_id].process_get(request))
 
     @dispatcher_only
@@ -329,6 +415,7 @@ class Server:
         from multiverso_tpu_torch.query import query_table
         with monitor("SERVER_PROCESS_QUERY_MSG"):
             request, completion = msg.data
+            hop(msg.req_id, "serve_query")
             completion.done(query_table(self._tables[msg.table_id], request))
 
     def _process_finish_train(self, msg: Message) -> None:
@@ -355,6 +442,7 @@ class DeterministicServer(Server):
 
     defers_adds = True
     fuses_adds = False
+    reorders_lanes = False
 
     def __init__(self, num_workers: int) -> None:
         super().__init__(num_workers)
@@ -449,6 +537,7 @@ class SyncServer(Server):
     def _watch_stalls(self, period: float) -> None:
         last_snap = None
         while not self._watch_stop.wait(period):
+            self._reap_leases()
             with self._register_lock:
                 tids = list(self._add_clock)
                 snap_add = {t: list(self._add_clock[t]) for t in tids}
@@ -462,6 +551,49 @@ class SyncServer(Server):
                     if n_add or n_get:
                         self._report_stall(tid, n_add, n_get, period)
             last_snap = snap
+
+    def _reap_leases(self) -> None:
+        """Evict every remote worker whose lease expired. The detector
+        reports each expiry once; the eviction changes clocks, so it runs
+        on the dispatcher thread, serialized with table traffic."""
+        liveness = self.liveness
+        if liveness is None:
+            return
+        for worker in liveness.reap():
+            if not 0 <= worker < self.num_workers:
+                continue
+            log.error("sync: lease expired for worker %d — evicting it "
+                      "from the round gates", worker)
+            self.send(Message(
+                src=-1, dst=-1, type=MsgType.Server_Execute,
+                data=[lambda w=worker: self._evict_worker(w),
+                      _NullCompletion()]))
+
+    @dispatcher_only
+    def _evict_worker(self, worker: int) -> None:
+        """Remove a dead worker from every clock gate: mark it finished so
+        the gates stop waiting on its clocks, fail its own deferred
+        requests (their replies have nowhere to go), drain so the
+        survivors' rounds proceed, and dump the flight recorder. The
+        evicted slot stays retired."""
+        if self._finished[worker]:
+            return
+        self._finished[worker] = True
+        count("WORKER_EVICTIONS")
+        exc = ConnectionError(
+            f"worker {worker} evicted: lease expired (crashed or "
+            "partitioned beyond lease_seconds)")
+        for tid in list(self._tables):
+            for pending in (self._pending_add, self._pending_get):
+                mine = [m for m in pending[tid] if m.src == worker]
+                if mine:
+                    pending[tid] = [m for m in pending[tid]
+                                    if m.src != worker]
+                    for msg in mine:
+                        hop(msg.req_id, "gate_failed_eviction")
+                        msg.data[-1].fail(exc)
+            self._drain(tid)
+        flight_dump("worker_evicted", worker=worker)
 
     def _report_stall(self, tid: int, n_add: int, n_get: int,
                       period: float) -> None:
@@ -490,12 +622,14 @@ class SyncServer(Server):
     @staticmethod
     def _gate_defer(msg: Message) -> None:
         msg._gated_at = time.perf_counter()
+        hop(msg.req_id, "gate_deferred")
 
     @staticmethod
     def _gate_release(msg: Message) -> None:
         gated_at = getattr(msg, "_gated_at", None)
         if gated_at is not None:
             observe("SYNC_GATE_WAIT_SECONDS", time.perf_counter() - gated_at)
+        hop(msg.req_id, "gate_released")
 
     def register_table(self, server_table) -> int:
         table_id = super().register_table(server_table)
@@ -531,11 +665,13 @@ class SyncServer(Server):
         """Apply a released Add; its completion carries ``process_add``'s
         return value (a fused add+get reply where the table gives one)."""
         request, completion = msg.data
+        hop(msg.req_id, "apply_add")
         with monitor("SERVER_PROCESS_ADD_MSG"):
             completion.done(self._tables[msg.table_id].process_add(request))
 
     def _serve_get(self, msg: Message) -> None:
         request, completion = msg.data
+        hop(msg.req_id, "serve_get")
         with monitor("SERVER_PROCESS_GET_MSG"):
             completion.done(self._tables[msg.table_id].process_get(request))
 

@@ -14,6 +14,11 @@ sums in the order the threads arrived), and each worker gets its own copy
 of a device result (JAX arrays are immutable and shared there; a torch
 tensor handed to four workers would be mutated under the other three).
 
+``remote_server`` is the process's :class:`~multiverso_tpu_torch.runtime.
+remote.RemoteServer` once ``serve`` ran (stopped with the runtime), and
+``_dedup_seeds`` are request ids the next ``serve`` seeds its dedup window
+with.
+
 Not yet ported: the multi-process lockstep runtime, and with it
 ``aggregate``'s cross-process leg.
 """
@@ -80,6 +85,10 @@ class Zoo:
         self.node = Node()
         self.device: Optional[torch.device] = None
         self.server: Optional[Server] = None
+        self.remote_server: Optional[Any] = None  # runtime.remote.RemoteServer
+        # (req_id, worker, msg_id) triples the next serve() seeds its
+        # dedup window with (exactly-once across a restart)
+        self._dedup_seeds: Optional[List] = None
         self._local_workers = 1
         self._remote_workers = 0
         self._barrier: Optional[threading.Barrier] = None
@@ -130,6 +139,9 @@ class Zoo:
     def stop(self, finalize_net: bool = True) -> None:
         if not self._started:
             return
+        if self.remote_server is not None:
+            self.remote_server.stop()
+            self.remote_server = None
         if self.server is not None:
             self.server.stop()
             self.server = None

@@ -236,6 +236,9 @@ class ArrayServer(ServerTable):
                 return self._device_value()
         return self._host_read(self.updater.access(self.data)[: self.size])
 
+    def remote_spec(self):
+        return {"kind": "array", "size": self.size, "dtype": self.dtype.str}
+
     # -- checkpoint --------------------------------------------------------
     def store(self, stream) -> None:
         from multiverso_tpu_torch.checkpoint import write_array, write_state_dict

@@ -143,8 +143,10 @@ class WorkerTable:
         (``dot`` | ``cosine``) and return ``(ids, scores)``, each
         (n_q, k') with k' = min(k, rows), ranked score-descending with
         ties toward the lower id. Served on the dispatcher after every
-        Add queued before it, and never clocked: the round gates of the
-        BSP, SSP and deterministic servers do not hold it.
+        Add acknowledged before it was sent, and never clocked: the round
+        gates of the BSP, SSP and deterministic servers do not hold it.
+        It is serving-lane traffic: drained together with queued Adds, it
+        is answered before them (``priority_lanes``).
 
         Bypasses wait()/process_reply_get: the reply is already the final
         (ids, scores) pair."""
@@ -197,6 +199,14 @@ class ServerTable:
             if len(self._opt_cache) > self._OPT_CACHE_MAX:
                 self._opt_cache.popitem(last=False)
         return cached
+
+    def remote_spec(self) -> Optional[Dict[str, Any]]:
+        """What a remote client needs to build a matching worker proxy:
+        the kind, the LOGICAL shape and the numpy dtype string, exactly as
+        the JAX package's tables send them (a client of either package
+        builds its proxy from it). The device padding never reaches the
+        wire. None = not servable over the wire."""
+        return None
 
     @staticmethod
     def _host_read(tensor: torch.Tensor) -> np.ndarray:

@@ -79,6 +79,9 @@ class KVServer(ServerTable):
         zero = self.value_dtype.type(0)
         return [self._store.get(k, zero) for k in keys]
 
+    def remote_spec(self):
+        return {"kind": "kv", "dtype": self.value_dtype.str}
+
     def store(self, stream) -> None:
         items = sorted(self._store.items())
         stream.write(struct.pack("<q", len(items)))
@@ -101,7 +104,8 @@ class TieredKVServer(KVServer):
     """KVServer whose value store is hot/cold tiered (``store/``). Scalars
     ride the tier as width-1 rows; numeric dtypes only (the host KVServer
     also stores python objects, which cannot spill to fixed-width
-    segments). Its snapshot is the plain KV format."""
+    segments). Its snapshot is the plain KV format, and its ``remote_spec``
+    says ``kind=kv``, so remote proxies treat it as a plain KV table."""
 
     def __init__(self, value_dtype: Any = np.float32,
                  resident_bytes: Optional[int] = None,
@@ -313,6 +317,9 @@ class DeviceKVServer(ServerTable):
                                    torch.from_numpy(keys).to(self.device),
                                    self.shard_capacity)
         return list(self._host_read(out))
+
+    def remote_spec(self):
+        return {"kind": "kv", "dtype": self.value_dtype.str}
 
     # -- checkpoint (live pairs only) ---------------------------------------
     def _record_dtype(self) -> np.dtype:

@@ -24,7 +24,9 @@ pads of every scatter aim at the sentinel row). ``load`` writes into the
 existing tensors, so a registered program or a trainer's transaction that
 closed over them sees the restored values.
 
-Not yet ported: live migration and the wire proxies.
+``remote_spec`` gives remote clients the logical shape; the wire proxy is
+``runtime/remote.py``'s ``_RemoteMatrixWorker``. Not yet ported: live
+migration.
 """
 
 from __future__ import annotations
@@ -408,6 +410,13 @@ class MatrixServer(ServerTable):
         ids_p, _, n = self._bucket_ids(stale, None)
         rows = self._host_read(gather_rows(self.data, ids_p)[:n, : self.num_col])
         return stale, rows
+
+    def remote_spec(self):
+        return {"kind": "matrix", "num_row": self.num_row,
+                "num_col": self.num_col, "dtype": self.dtype.str,
+                "is_sparse": self.is_sparse,
+                "is_pipelined": self.is_pipelined,
+                "num_workers": self.num_workers}
 
     # -- checkpoint --------------------------------------------------------
     def store(self, stream) -> None:

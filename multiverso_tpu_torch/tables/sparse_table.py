@@ -24,7 +24,8 @@ as the JAX package does.
 :class:`~multiverso_tpu_torch.store.TieredStore` under a byte budget
 (``make_tiered_sparse``); its snapshot is the plain sparse format.
 
-Not yet ported: the wire proxies (``remote_spec``).
+``remote_spec`` reports ``kind=sparse`` for all three servers, so a
+remote client serves them through one proxy (``runtime/remote.py``).
 """
 
 from __future__ import annotations
@@ -96,6 +97,10 @@ class SparseServer(ServerTable):
         return out
 
     # -- checkpoint ---------------------------------------------------------
+    def remote_spec(self):
+        return {"kind": "sparse", "key_space": self.key_space,
+                "width": self.width, "dtype": self.dtype.str}
+
     def store(self, stream) -> None:
         live, vals = self.process_get((None, None))
         stream.write(struct.pack("<qq", len(live), self.width))
@@ -168,6 +173,10 @@ class SparseFTRLServer(ServerTable):
             if z is not None:
                 out[i] = self._weights(z, self._n[k])
         return out
+
+    def remote_spec(self):
+        return {"kind": "sparse", "key_space": self.key_space,
+                "width": self.width, "dtype": self.dtype.str}
 
     def store(self, stream) -> None:
         live = np.array(sorted(self._z.keys()), dtype=np.int64)

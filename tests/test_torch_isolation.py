@@ -18,7 +18,8 @@ REPO = Path(__file__).resolve().parent.parent
 # the package, its example scripts (multiverso_tpu_torch/examples) and the
 # scripts beside it
 PORT_FILES = sorted((REPO / "multiverso_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "rows_variants.py", REPO / "asgd_probe.py"]
+    REPO / "chip_smoke.py", REPO / "rows_variants.py", REPO / "asgd_probe.py",
+    REPO / "tests" / "torch_remote_child.py"]
 EXAMPLES = ("resnet_asgd.py", "torch_asgd.py", "asgd_param_manager.py")
 
 
@@ -53,7 +54,19 @@ def test_import_pulls_in_no_jax():
             "multiverso_tpu_torch.ext", "multiverso_tpu_torch.ext.param_manager",
             "multiverso_tpu_torch.ext.sharedvar",
             "multiverso_tpu_torch.ext.callbacks",
-            "multiverso_tpu_torch.models.resnet"} <= set(loaded)
+            "multiverso_tpu_torch.models.resnet",
+            "multiverso_tpu_torch.obs.trace",
+            "multiverso_tpu_torch.obs.metrics",
+            "multiverso_tpu_torch.fault",
+            "multiverso_tpu_torch.fault.detector",
+            "multiverso_tpu_torch.fault.retry",
+            "multiverso_tpu_torch.fault.inject",
+            "multiverso_tpu_torch.runtime.admission",
+            "multiverso_tpu_torch.runtime.wire",
+            "multiverso_tpu_torch.runtime.shm",
+            "multiverso_tpu_torch.runtime.net",
+            "multiverso_tpu_torch.runtime.remote",
+            "multiverso_tpu_torch.utils.backoff"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -68,6 +81,31 @@ def test_source_imports_no_jax(path):
             if _forbidden(node.module):
                 found.append(node.module)
     assert found == []
+
+
+@pytest.mark.parametrize("argv", [["tests/torch_remote_child.py", "serve"],
+                                  ["chip_smoke.py", "--client"]],
+                         ids=["remote_child", "chip_smoke_client"])
+def test_client_processes_load_no_jax(argv):
+    """The port's child script and chip_smoke.py's client mode, run as the
+    process they are: after their main returns, nothing of JAX or of the
+    JAX package is loaded (the serve mode is stopped before it sleeps)."""
+    code = ("import json, runpy, sys, time\n"
+            f"sys.argv = {argv!r}\n"
+            "time.sleep = sys.exit\n"  # the serve mode parks in a sleep
+            "try:\n"
+            "    runpy.run_path(sys.argv[0], run_name='__main__')\n"
+            "except SystemExit:\n"
+            "    pass\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         input="EXIT\n", capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "multiverso_tpu_torch" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
 
 
 def test_example_twins_are_checked():

@@ -367,18 +367,20 @@ def test_tiered_compressed_domain_scan(port, tmp_path, bits):
 
 def test_worker_table_query_front_door(port):
     """mvt.query against a live table: one round trip through the
-    dispatcher, after the Adds queued before it; equal to the oracle."""
+    dispatcher, after the Adds acknowledged before it; equal to the
+    oracle. (A query is serving-lane traffic: drained together with
+    queued Adds it is answered before them, as in the JAX package.)"""
     rows, cols = 24, 6
     rng = np.random.default_rng(8)
     data = _int_block(rng, rows, cols)
     table = mvt.create_table("matrix", rows, cols, np.float32)
     handles = [table.add_async(data[i:i + 6], row_ids=np.arange(i, i + 6))
                for i in range(0, rows, 6)]
-    vecs = _int_block(rng, 2, cols)
-    ids, scores = mvt.query(table, vecs, 5)   # queued behind every Add
-    _assert_topk((ids, scores), np.arange(rows), data, vecs, 5, "dot")
     for h in handles:
         table.wait(h)
+    vecs = _int_block(rng, 2, cols)
+    ids, scores = mvt.query(table, vecs, 5)
+    _assert_topk((ids, scores), np.arange(rows), data, vecs, 5, "dot")
     ids2, scores2 = table.query(vecs, 5, metric="dot")
     np.testing.assert_array_equal(ids2, ids)
     np.testing.assert_array_equal(scores2, scores)
