@@ -161,7 +161,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    block against the same block stepped on the CPU by a second client
    (``W2V_RTOL``, ``W2V_ATOL``), then 16 blocks timed (words/s); the
    scatter and the gather launched in this process.
-15. The run's seconds, one JSON line listing every kernel, then the last line
+15. Durable serving at configuration 1's width (the three tables of leg
+   1). Leg 1: phase 14's leg 1 with a write-ahead log, under
+   ``wal_sync=batch`` and ``always`` (32 rounds a client): adds/s and
+   Add/Get p50/p99 beside phase 14's, append and fsync p50, log bytes
+   and MB/s, every Add logged once. Leg 2: a primary in a child process
+   on the card (this script with ``--durable-primary``) dies after
+   logging an Add (``after_append``); this process re-creates the
+   tables, ``durable_recover``s and serves on its port while the
+   client's retransmit settles; a ``CheckpointDriver(wal=...)``
+   snapshot; a second child recovers from that generation and dies
+   between a fused batch's appends and its apply (``mid_batch``); this
+   process recovers again: every table (the AdaGrad one against a numpy
+   float32 mirror) bitwise equal to the mirror of the acknowledged Adds;
+   recovery and kill-to-serving seconds, records/s. Leg 3: a warm
+   standby here tails a child primary (2 s lease), 2 client processes
+   train (async, then BSP), the primary is SIGKILLed after 3 rounds at a
+   round boundary: the standby takes over, the final tables are bitwise
+   the fault-free sums, ``FAILOVERS`` counts; kill to ``took_over`` and
+   to the first acknowledged Add. Leg 4: a read replica here, a writer
+   adding ones to a block of rows, Gets with ``read_preference``
+   replica, hedged and primary: each replica Get one primary state within
+   ``read_staleness_records`` 32, the primary's Gets moving only by the
+   fallbacks, the lag within the budget; p50/p99. Leg 5: ``mvt.audit``
+   of the primary and the replica equal at a common watermark, then a
+   corrupt row planted on the replica caught. The scatter must launch in
+   this process over legs 2-3 and the gather over leg 4.
+16. The run's seconds, one JSON line listing every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
@@ -173,6 +199,7 @@ import argparse
 import json
 import os
 import queue
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2809,16 +2836,18 @@ class Client:
     """One client process (``chip_smoke.py --client``): it runs the jobs it
     is sent, one JSON line each, until ``EXIT``. Its stdout lines queue up
     for :meth:`expect`; its stderr goes to a file whose tail a failure
-    quotes."""
+    quotes. ``args`` starts another role of this script instead (phase
+    15's ``--durable-primary``), named ``name``."""
 
-    def __init__(self, scratch: str, n: int) -> None:
-        self.name = f"client{n}"
+    def __init__(self, scratch: str, n: int, args=("--client",),
+                 name: str = "") -> None:
+        self.name = name or f"client{n}"
         self.killed = False
         self.err_path = os.path.join(scratch, f"{self.name}.err")
         self._err = open(self.err_path, "w")
         here = os.path.dirname(os.path.abspath(__file__))
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--client"],
+            [sys.executable, os.path.abspath(__file__), *args],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._err,
             text=True, cwd=here)
         self._lines: "queue.Queue" = queue.Queue()
@@ -3213,12 +3242,15 @@ def zero_launches(rows) -> None:
 def serve_ps_leg(mvt, rows, device: str, pool: ClientPool,
                  n_clients: int = SERVE_CLIENTS, rounds: int = SERVE_ROUNDS,
                  num_row: int = ROWS, num_col: int = COLS,
-                 batch: int = BATCH, seed: int = 3):
+                 batch: int = BATCH, seed: int = 3, init_flags=None):
     """Leg 1: the PS phase's three tables served over TCP to
     ``n_clients`` processes; each table against a host mirror of every
-    Add; the stats RPC accounts for every Add sent."""
+    Add; the stats RPC accounts for every Add sent. ``init_flags`` adds
+    runtime flags (phase 15 serves it with a write-ahead log: ``wal_dir``,
+    ``wal_sync``; the log's metrics join the result)."""
     from multiverso_tpu_torch.dashboard import Dashboard
-    mvt.init(device=device, remote_workers=n_clients, heartbeat_seconds=0)
+    mvt.init(device=device, remote_workers=n_clients, heartbeat_seconds=0,
+             **(init_flags or {}))
     try:
         mat, ada, arr = ps_tables(mvt, num_row, num_col)
         ep = mvt.serve("127.0.0.1:0")
@@ -3277,13 +3309,16 @@ def serve_ps_leg(mvt, rows, device: str, pool: ClientPool,
         client_ms = {name: float(np.mean([r["client_wire_ms"][name]
                                           for r in results]))
                      for name in ("WIRE_ENCODE", "WIRE_DECODE")}
-        return {"clients": n_clients, "matrix_adds": len(adds),
-                "adds_per_s": len(adds) / wall, "seconds": wall,
-                "add_us": percentiles(adds), "get_us": percentiles(gets),
-                "adds_sent": sent, "server_process_add_msg": mon,
-                "fused_calls": fused, "fused_adds": batched,
-                "dedup_hits": snap.counter("SERVER_DEDUP_HITS"),
-                "server_ms": server_ms, "client_ms": client_ms}, launches
+        out = {"clients": n_clients, "matrix_adds": len(adds),
+               "adds_per_s": len(adds) / wall, "seconds": wall,
+               "add_us": percentiles(adds), "get_us": percentiles(gets),
+               "adds_sent": sent, "server_process_add_msg": mon,
+               "fused_calls": fused, "fused_adds": batched,
+               "dedup_hits": snap.counter("SERVER_DEDUP_HITS"),
+               "server_ms": server_ms, "client_ms": client_ms}
+        if mvt.wal_writer() is not None:
+            out["wal"] = wal_metrics(mvt, snap, sent, wall)
+        return out, launches
     finally:
         stop_runtime(mvt)
 
@@ -3599,6 +3634,642 @@ def serve_phase(mvt, rows, device: str, card: str, scratch: str,
     return metrics, {"1_ps_tcp": ps_launches, "5_word2vec": w2v_launches}
 
 
+# -- 15. durable serving -------------------------------------------------------
+# The write-ahead log, crash recovery, warm-standby failover, read replicas
+# and the audit digest, at configuration 1's width (the PS phase's three
+# tables). Primaries that must die are child processes of this script
+# (``--durable-primary``) on the same card; the standby, the replica and
+# every recovered primary run in this process.
+
+WAL_ROUNDS = 32                   # leg 1: rounds per client and sync level
+DURABLE_ROUNDS = 12               # leg 2: rounds of the one client
+DURABLE_CRASH_ROUND = 2           # leg 2: primary A dies logging this round
+DURABLE_SNAP_ROUND = 6            # leg 2: the snapshot, before this round
+DURABLE_HANDOVER_ROUND = 8        # leg 2: primary B serves from this round
+DURABLE_BATCH = 3                 # leg 2: B's held micro-batch of Adds
+FAILOVER_ROUNDS = 8               # leg 3: rounds per client
+FAILOVER_CLIENTS = 2
+FAILOVER_HALF = 3                 # leg 3: acknowledged rounds before the kill
+STANDBY_LEASE_S = 2.0
+READ_BUDGET = 32                  # leg 4: read_staleness_records
+READ_ADDS = 96                    # leg 4: the writer's Adds
+READ_GETS = 64                    # leg 4: Gets per read preference
+PRIMARY_S = 180                   # a durable primary's limit for a step
+
+
+def wal_metrics(mvt, snap, sent: int, wall: float) -> dict:
+    """The log's side of a served leg: every Add appended once, its bytes
+    and rate, the append and fsync medians (µs)."""
+    wal = mvt.wal_writer()
+    appends = snap.counter("WAL_APPENDS")
+    if appends != sent:
+        raise AssertionError(f"WAL_APPENDS {appends} != the {sent} Adds "
+                             "sent (each acknowledged Add is logged once)")
+    wal_dir = os.path.join(wal.directory, "wal")
+    nbytes = sum(os.path.getsize(os.path.join(wal_dir, n))
+                 for n in os.listdir(wal_dir))
+    out = {"sync": wal.sync, "appends": appends, "bytes": nbytes,
+           "mb_per_s": nbytes / wall / 1e6}
+    for name in ("WAL_APPEND_SECONDS", "WAL_FSYNC_SECONDS"):
+        h = snap.histogram(name)
+        out[name.lower()[:-8] + "_p50_us"] = (h.p50 * 1e6 if h is not None
+                                               else None)
+    return out
+
+
+def free_port() -> int:
+    import socket
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def arm_crash(point: str, at: int) -> None:
+    """Make this process die with ``os._exit(9)`` at ``point`` of the
+    ``at``-th wire Add: ``after_append`` (logged, neither applied nor
+    acknowledged) or ``mid_batch`` (the ``at``-th fused apply: every Add
+    of the micro-batch logged, none applied or acknowledged). The hooks
+    patch the port's dispatcher seams, as tests/durable_primary_child.py
+    does the JAX package's."""
+    from multiverso_tpu_torch.runtime.server import Server
+    state = {"n": 0}
+    if point == "after_append":
+        orig = Server._wal_append
+
+        def hooked(self, msg):
+            logged = getattr(msg, "_wal", None) is not None and self.wal
+            orig(self, msg)
+            if logged:
+                state["n"] += 1
+                if state["n"] == at:
+                    os._exit(9)
+
+        Server._wal_append = hooked
+    elif point == "mid_batch":
+        orig_fused = Server._apply_fused
+
+        def hooked_fused(self, table, request):
+            state["n"] += 1
+            if state["n"] == at:
+                os._exit(9)
+            orig_fused(self, table, request)
+
+        Server._apply_fused = hooked_fused
+    else:
+        raise SystemExit(f"unknown crash point {point!r}")
+
+
+def arm_batch_hold(mvt, n: int) -> None:
+    """From now on the dispatcher drains only once ``n`` messages are
+    queued: the next ``n`` Adds of one table ride one fused apply. A no-op
+    request moves the dispatcher off the drain it is blocked in."""
+    from multiverso_tpu_torch.runtime.zoo import Zoo
+    from multiverso_tpu_torch.utils import MtQueue
+    orig = MtQueue.pop_all
+
+    def held(self):
+        while self.alive and self.size() < n:
+            time.sleep(0.002)
+        return orig(self)
+
+    MtQueue.pop_all = held
+    Zoo.instance().server.run_serialized(lambda: None)
+
+
+def durable_primary_main(argv) -> int:
+    """``chip_smoke.py --durable-primary PORT WAL_DIR [options]``: serve
+    the PS phase's three tables with a write-ahead log on ``127.0.0.1:PORT``
+    and print ``serving <endpoint>``; ``--recover`` replays WAL_DIR first
+    (and prints ``recovered <json>``); ``--crash-point``/``--crash-at`` and
+    ``--batch-hold`` arm a crash (``arm_crash``). Then it serves until
+    killed, or until ``EXIT`` on stdin."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("port")
+    parser.add_argument("wal_dir")
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--num-row", type=int, default=ROWS)
+    parser.add_argument("--num-col", type=int, default=COLS)
+    parser.add_argument("--remote-workers", type=int, default=1)
+    parser.add_argument("--sync", action="store_true")
+    parser.add_argument("--recover", action="store_true")
+    parser.add_argument("--crash-point", default="")
+    parser.add_argument("--crash-at", type=int, default=0)
+    parser.add_argument("--batch-hold", type=int, default=0)
+    a = parser.parse_args(argv)
+    torch.set_num_threads(1)
+    import multiverso_tpu_torch as mvt
+    mvt.init(device=a.device, ps_role="server",
+             remote_workers=a.remote_workers, wal_dir=a.wal_dir,
+             sync=a.sync, heartbeat_seconds=0.2, lease_seconds=30.0)
+    tables = ps_tables(mvt, a.num_row, a.num_col)
+    if a.recover:
+        t0 = time.perf_counter()
+        result = mvt.durable_recover(tables)
+        print("recovered " + json.dumps({
+            "seconds": time.perf_counter() - t0,
+            "tables_restored": result.tables_restored,
+            "records_replayed": result.records_replayed}), flush=True)
+    if a.batch_hold:
+        arm_batch_hold(mvt, a.batch_hold)
+    if a.crash_point:
+        arm_crash(a.crash_point, a.crash_at)
+    print(f"serving {mvt.serve(f'127.0.0.1:{a.port}')}", flush=True)
+    for line in sys.stdin:
+        if line.strip() == "EXIT":
+            break
+    mvt.shutdown()
+    return 0
+
+
+def spawn_primary(scratch: str, name: str, port: int, wal_dir: str,
+                  device: str, num_row: int, num_col: int, *extra) -> Client:
+    return Client(scratch, 0, name=name, args=(
+        "--durable-primary", str(port), wal_dir, f"--device={device}",
+        f"--num-row={num_row}", f"--num-col={num_col}", *extra))
+
+
+def await_exit(proc: Client, code: int, timeout: float = PRIMARY_S) -> float:
+    """Wait for a primary's death; its exit code must be ``code``; returns
+    the instant (perf_counter) it was seen dead."""
+    got = proc.proc.wait(timeout=timeout)
+    seen = time.perf_counter()
+    proc.killed = True
+    if got != code:
+        raise AssertionError(f"{proc.name} exited {got}, not {code}\n"
+                             f"{proc._tail()}")
+    return seen
+
+
+def durable_rounds(seed: int, rounds: int, num_row: int, num_col: int,
+                   batch: int) -> list:
+    """Leg 2's Adds, integer-valued: per round a default-matrix Add, an
+    AdaGrad Add (ids with duplicates) and a whole-array Add."""
+    out = []
+    for k in range(rounds):
+        rng = np.random.default_rng([seed, k, 15])
+        out.append((rng.integers(0, num_row, batch).astype(np.int32),
+                    int_rows(rng, (batch, num_col)),
+                    rng.integers(0, num_row, batch).astype(np.int32),
+                    int_rows(rng, (batch, num_col)),
+                    int_rows(rng, (num_row,))))
+    return out
+
+
+def durable_recovery_leg(mvt, rows, device: str, scratch: str,
+                         num_row: int = ROWS, num_col: int = COLS,
+                         batch: int = BATCH, rounds: int = DURABLE_ROUNDS,
+                         seed: int = 5) -> tuple:
+    """Leg 2: primary A (a child) dies after logging round 2's first Add;
+    this process re-creates the tables, recovers and serves on A's port
+    while the client's retransmit settles against the seeded dedup window;
+    a durable snapshot mid-run; primary B (a child) recovers from that
+    generation plus the log suffix and dies between a fused micro-batch's
+    appends and its apply; this process recovers again. Every table
+    bitwise equal to a mirror of every acknowledged Add."""
+    from multiverso_tpu_torch import checkpoint
+    root = os.path.join(scratch, "durable2")
+    port = free_port()
+    ep = f"127.0.0.1:{port}"
+    plan = durable_rounds(seed, rounds, num_row, num_col, batch)
+    out = {"rounds": rounds, "recoveries": []}
+    events = {k: threading.Event() for k in ("snap", "snapped", "handover",
+                                             "b_serving", "done")}
+    errors = []
+    crash_at = 3 * DURABLE_CRASH_ROUND + 1
+    a = spawn_primary(scratch, "primaryA", port, root, device, num_row,
+                      num_col, "--crash-point=after_append",
+                      f"--crash-at={crash_at}")
+    a.expect("serving", PRIMARY_S)
+    # the client's flags; a restart here keeps them (no FLAGS reset until
+    # the leg ends): its reconnect loop reads them on every attempt
+    client_flags = dict(request_retry_seconds=0.5,
+                        reconnect_deadline_seconds=PRIMARY_S,
+                        retry_base_seconds=0.1, heartbeat_seconds=0)
+    for key, value in client_flags.items():
+        mvt.set_flag(key, value)
+
+    def client_run():
+        try:
+            client = mvt.remote_connect(ep)
+            mat, ada, arr = client.table(0), client.table(1), client.table(2)
+            opt = mvt.AddOption(worker_id=client.worker_id,
+                                learning_rate=0.1, rho=0.1)
+            for k, (ids, vals, aids, avals, arow) in enumerate(plan):
+                if k == DURABLE_SNAP_ROUND:
+                    events["snap"].set()
+                    events["snapped"].wait(PRIMARY_S)
+                if k == DURABLE_HANDOVER_ROUND:
+                    events["handover"].set()
+                    events["b_serving"].wait(PRIMARY_S)
+                    # B's held drain fuses these; it dies before applying
+                    handles = [mat.add_async(vals[j::DURABLE_BATCH],
+                                             row_ids=ids[j::DURABLE_BATCH])
+                               for j in range(DURABLE_BATCH)]
+                    for h in handles:
+                        mat.wait(h)
+                else:
+                    mat.add(vals, row_ids=ids)
+                ada.add(avals, row_ids=aids, option=opt)
+                arr.add(arow)
+            client.close()
+        except Exception as exc:  # reported by the leg
+            errors.append(exc)
+        finally:
+            events["done"].set()
+
+    def recover_here(what: str, dead_at: float) -> list:
+        mvt.init(device=device, ps_role="server", remote_workers=1,
+                 wal_dir=root, heartbeat_seconds=0)
+        tables = ps_tables(mvt, num_row, num_col)
+        t0 = time.perf_counter()
+        result = mvt.durable_recover(tables)
+        rec_s = time.perf_counter() - t0
+        mvt.serve(ep)
+        serving = time.perf_counter()
+        out["recoveries"].append({
+            "what": what, "recover_s": rec_s,
+            "kill_to_serving_s": serving - dead_at,
+            "tables_restored": result.tables_restored,
+            "records_replayed": result.records_replayed,
+            "replay_records_per_s": result.records_replayed / rec_s})
+        return tables
+
+    thread = threading.Thread(target=client_run, daemon=True)
+    thread.start()
+    dead = await_exit(a, 9)
+    tables = recover_here("after_append, from the log", dead)
+    if not events["snap"].wait(PRIMARY_S):
+        raise TimeoutError(f"leg 2: no snapshot round; {errors}")
+    t0 = time.perf_counter()
+    checkpoint.CheckpointDriver(tables, root, wal=mvt.wal_writer()).snapshot()
+    out["snapshot_s"] = time.perf_counter() - t0
+    events["snapped"].set()
+    if not events["handover"].wait(PRIMARY_S):
+        raise TimeoutError(f"leg 2: no handover round; {errors}")
+    mvt.shutdown()  # a planned handover: this process's log closes cleanly
+    b = spawn_primary(scratch, "primaryB", port, root, device, num_row,
+                      num_col, "--recover", "--crash-point=mid_batch",
+                      "--crash-at=1", f"--batch-hold={DURABLE_BATCH}")
+    out["b_recovery"] = json.loads(b.expect("recovered", PRIMARY_S))
+    b.expect("serving", PRIMARY_S)
+    events["b_serving"].set()
+    dead = await_exit(b, 9)
+    for child in (a, b):
+        child._err.close()
+    tables = recover_here("mid_batch, from the snapshot and the log suffix",
+                          dead)
+    if not events["done"].wait(PRIMARY_S) or errors:
+        raise AssertionError(f"leg 2: the client failed: {errors}")
+    thread.join(timeout=30)
+    mat_m = np.zeros((num_row, num_col), np.float64)
+    ada_m = np.zeros((num_row, num_col), np.float32)
+    g_sqr = np.zeros((num_row, num_col), np.float32)
+    arr_m = np.zeros(num_row, np.float64)
+    for ids, vals, aids, avals, arow in plan:
+        np.add.at(mat_m, ids, vals)
+        adagrad_mirror(ada_m, g_sqr, aids, avals, 0.1, 0.1)
+        arr_m += arow
+    for name, table, want in (("matrix", tables[0], mat_m.astype(np.float32)),
+                              ("adagrad matrix", tables[1], ada_m),
+                              ("array", tables[2], arr_m.astype(np.float32))):
+        with mvt.Zoo.instance().admin():
+            gap = bitwise_gap(table, want)
+        if gap != 0.0:
+            raise AssertionError(f"leg 2: recovered {name} table != the "
+                                 f"mirror of every acknowledged Add (max "
+                                 f"|diff| {gap})")
+    stop_runtime(mvt)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def failover_round(seed: int, idx: int, k: int, num_row: int, num_col: int,
+                   batch: int):
+    rng = np.random.default_rng([seed, idx, k, 16])
+    return (rng.integers(0, num_row, batch).astype(np.int32),
+            int_rows(rng, (batch, num_col)), int_rows(rng, (num_row,)))
+
+
+def client_failover(mvt, s: dict) -> dict:
+    """Leg 3: integer-valued Adds to the default matrix and the array (and,
+    under BSP, a Get of each to close the round); after ``half``
+    acknowledged rounds ``HALF``, and on at the next ``GO`` (the primary
+    is killed between the two, at a round boundary); the wall instant of
+    every Add's ACK."""
+    client = mvt.remote_connect(s["endpoint"])
+    mat, arr = client.table(0), client.table(2)
+    wait_go()
+    acks = []
+    for k in range(s["rounds"]):
+        ids, vals, arow = failover_round(s["seed"], s["idx"], k,
+                                         s["num_row"], s["num_col"],
+                                         s["batch"])
+        mat.add(vals, row_ids=ids)
+        acks.append(time.time())
+        arr.add(arow)
+        acks.append(time.time())
+        if s["bsp"]:
+            mat.get(ids)
+            arr.get()
+        if k + 1 == s["half"]:
+            print("HALF", flush=True)
+            if sys.stdin.readline().strip() != "GO":
+                raise SystemExit("client: no GO after HALF")
+    mat.finish_train()
+    client.close()
+    return {"acks": acks}
+
+
+CLIENT_ROLES["failover"] = client_failover
+
+
+def durable_failover_leg(mvt, rows, device: str, pool: ClientPool,
+                         scratch: str, mode: str, primary: Client, port: int,
+                         num_row: int = ROWS, num_col: int = COLS,
+                         batch: int = BATCH, rounds: int = FAILOVER_ROUNDS,
+                         seed: int = 6) -> dict:
+    """Leg 3: a warm standby in this process tails ``primary`` (a child,
+    serving with ``--sync`` under BSP); 2 client processes train; the
+    primary is SIGKILLed after 3 acknowledged rounds. The standby takes
+    over the service endpoint, the clients finish, and the final tables
+    are bitwise the fault-free sums. The AdaGrad table takes no Adds here:
+    two workers' float32 steps would sum in arrival order; leg 2 holds it
+    bitwise with one client."""
+    from multiverso_tpu_torch.dashboard import Dashboard
+    ep = primary.expect("serving", PRIMARY_S)
+    bsp = mode == "bsp"
+    mvt.init(device=device, ps_role="server", remote_workers=FAILOVER_CLIENTS,
+             wal_dir=os.path.join(scratch, f"standby_{mode}"), sync=bsp,
+             heartbeat_seconds=0.3)
+    try:
+        tables = ps_tables(mvt, num_row, num_col)
+        t0 = time.perf_counter()
+        standby = mvt.warm_standby(ep, f"127.0.0.1:{port}",
+                                   lease_seconds=STANDBY_LEASE_S)
+        if not standby.synced.wait(PRIMARY_S):
+            raise TimeoutError(f"leg 3 {mode}: no state transfer")
+        transfer_s = time.perf_counter() - t0
+        failovers = Dashboard.counter_value("FAILOVERS")
+        procs = pool.take(FAILOVER_CLIENTS)
+        spec = dict(role="failover", endpoint=ep, rounds=rounds, seed=seed,
+                    num_row=num_row, num_col=num_col, batch=batch, bsp=bsp,
+                    half=FAILOVER_HALF,
+                    flags=dict(request_retry_seconds=0.5,
+                               reconnect_deadline_seconds=90.0,
+                               retry_base_seconds=0.1,
+                               heartbeat_seconds=0.3))
+        for i, p in enumerate(procs):
+            p.job(dict(spec, idx=i))
+        for p in procs:
+            p.expect("READY")
+        for p in procs:
+            p.send("GO")
+        for p in procs:
+            p.expect("HALF")
+        # the kill lands at a round boundary: the standby's round clocks
+        # start at 0 for every worker, which a boundary matches (mid-round,
+        # a worker whose Add the dead primary acknowledged would wait in
+        # its Get for a round the standby never counted)
+        t_kill, t_kill_perf = time.time(), time.perf_counter()
+        primary.kill()
+        for p in procs:
+            p.send("GO")
+        if not standby.took_over.wait(PRIMARY_S):
+            raise AssertionError(f"leg 3 {mode}: the standby never took over")
+        took_over_s = time.perf_counter() - t_kill_perf
+        results = [p.result() for p in procs]
+        after = [t for r in results for t in r["acks"] if t > t_kill]
+        mat_m = np.zeros((num_row, num_col), np.float64)
+        arr_m = np.zeros(num_row, np.float64)
+        for idx in range(FAILOVER_CLIENTS):
+            for k in range(rounds):
+                ids, vals, arow = failover_round(seed, idx, k, num_row,
+                                                 num_col, batch)
+                np.add.at(mat_m, ids, vals)
+                arr_m += arow
+        with mvt.Zoo.instance().admin():
+            for name, table, want in (
+                    ("matrix", tables[0], mat_m.astype(np.float32)),
+                    ("adagrad matrix", tables[1],
+                     np.zeros((num_row, num_col), np.float32)),
+                    ("array", tables[2], arr_m.astype(np.float32))):
+                gap = bitwise_gap(table, want)
+                if gap != 0.0:
+                    raise AssertionError(
+                        f"leg 3 {mode}: {name} after failover != the "
+                        f"fault-free sum (max |diff| {gap})")
+        n_failovers = Dashboard.counter_value("FAILOVERS") - failovers
+        if n_failovers < 1:
+            raise AssertionError(f"leg 3 {mode}: FAILOVERS did not count")
+        return {"mode": mode, "clients": FAILOVER_CLIENTS, "rounds": rounds,
+                "state_transfer_s": transfer_s,
+                "records_applied": standby.records_applied,
+                "kill_to_took_over_s": took_over_s,
+                "kill_to_first_ack_s": (min(after) - t_kill) if after
+                else None, "failovers": n_failovers}
+    finally:
+        stop_runtime(mvt)
+
+
+def durable_replica_leg(mvt, rows, device: str, scratch: str,
+                        primary: Client, num_row: int = ROWS,
+                        num_col: int = COLS, batch: int = BATCH,
+                        budget: int = READ_BUDGET, adds: int = READ_ADDS,
+                        gets: int = READ_GETS) -> tuple:
+    """Legs 4 and 5: a read replica in this process tails ``primary`` (a
+    child); a writer thread adds ones to a fixed block of 1024 rows of the
+    default matrix (after k Adds the block holds k everywhere), reader
+    threads Get the block with ``read_preference`` replica, hedged and
+    primary. Every replica-served Get is one primary state (k everywhere)
+    with k no more than ``budget`` Adds behind; the primary's Get count
+    moves only by the readers' primary fallbacks; the replica's lag stays
+    within the budget. Then the audit (leg 5): the primary and the replica
+    digest equal at a common watermark; a corrupt row planted on the
+    replica is caught. Returns (metrics, gather launches over leg 4)."""
+    from multiverso_tpu_torch.dashboard import Dashboard
+    from multiverso_tpu_torch.fault.inject import corrupt_table_row
+    ep = primary.expect("serving", PRIMARY_S)
+    mvt.init(device=device, ps_role="server", remote_workers=2,
+             wal_dir=os.path.join(scratch, "replica"), heartbeat_seconds=0.2,
+             read_staleness_records=budget)
+    try:
+        tables = ps_tables(mvt, num_row, num_col)
+        standby = mvt.warm_standby(ep, ep, takeover=False)
+        if not standby.synced.wait(PRIMARY_S):
+            raise TimeoutError("leg 4: no state transfer")
+        read_ep = standby.serve_reads()
+        block = np.arange(batch, dtype=np.int32)
+        ones = np.ones((batch, num_col), np.float32)
+        acked = [0]
+        stop = threading.Event()
+        lags = []
+
+        def writer():
+            # Adds at least ``adds`` times, and on until the replica
+            # readers are done: every replica Get races the log's tail
+            client = mvt.remote_connect(ep)
+            mat = client.table(0)
+            while acked[0] < adds or not stop.is_set():
+                mat.add(ones, row_ids=block)
+                acked[0] += 1
+                time.sleep(0.002)
+            client.close()
+
+        def gets_of(preference):
+            client = (mvt.remote_connect(ep) if preference == "primary" else
+                      mvt.remote_connect(ep, read_endpoints=[read_ep],
+                                         read_preference=preference))
+            mat, lat, stale = client.table(0), [], []
+            for _ in range(gets):
+                floor = acked[0]
+                t0 = time.perf_counter()
+                got = mat.get(block)
+                lat.append((time.perf_counter() - t0) * 1e6)
+                ceiling = acked[0] + 1          # one Add may be in flight
+                k = float(got[0, 0])
+                if not (np.array_equal(got, np.full_like(got, k))
+                        and floor - budget <= k <= ceiling):
+                    raise AssertionError(
+                        f"leg 4 {preference}: a Get is no primary state "
+                        f"within the budget (k {k}, acked {floor}..{ceiling},"
+                        f" budget {budget})")
+                stale.append(floor - k)
+                lags.append(standby.lag_records())
+            client.close()
+            return {"get_us": percentiles(lat),
+                    "max_records_behind": float(max(stale))}
+
+        def primary_gets():
+            h = mvt.stats(ep).histogram("SERVER_PROCESS_GET_MSG")
+            return h.count if h is not None else 0
+
+        zero_launches(rows)
+        fallbacks0 = Dashboard.counter_value("READ_PRIMARY_FALLBACKS")
+        gets0 = primary_gets()
+        out = {"budget": budget}
+        w = threading.Thread(target=writer, daemon=True)
+        w.start()
+        for preference in ("replica", "hedged"):
+            out[preference] = gets_of(preference)
+        fallbacks = (Dashboard.counter_value("READ_PRIMARY_FALLBACKS")
+                     - fallbacks0)
+        moved = primary_gets() - gets0
+        if moved != fallbacks:
+            raise AssertionError(f"leg 4: the primary served {moved} Gets, "
+                                 f"the readers fell back {fallbacks} times")
+        launches = launch_counts(rows)
+        out["primary"] = gets_of("primary")
+        stop.set()
+        w.join(timeout=PRIMARY_S)
+        if w.is_alive():
+            raise TimeoutError("leg 4: the writer did not finish")
+        out["adds"] = acked[0]
+        out["primary_fallbacks"] = fallbacks
+        out["replica_served"] = Dashboard.counter_value("READS_SERVED_REPLICA")
+        out["lag_records"] = {"max": max(lags), "p50": float(np.median(lags))}
+        if max(lags) > budget:
+            raise AssertionError(f"leg 4: replica lag {max(lags)} > budget")
+
+        # leg 5: the audit at a common watermark, then a planted fault
+        deadline = time.monotonic() + PRIMARY_S
+        while (standby.lag_records()
+               or standby.applied_watermark < acked[0]) \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        fleet = {"endpoints": [ep], "replicas": [[read_ep]]}
+        t0 = time.perf_counter()
+        report = mvt.audit(fleet, interval=0).check()
+        audit_s = time.perf_counter() - t0
+        if not report["ok"] or report["skews"] or report["unreachable"]:
+            raise AssertionError(f"leg 5: the clean audit failed: {report}")
+        if not standby._run(lambda: corrupt_table_row(tables[0], 7)):
+            raise AssertionError("leg 5: the corrupt row was not planted")
+        report = mvt.audit(fleet, interval=0).check()
+        caught = Dashboard.counter_value("AUDIT_DIVERGENCE")
+        if report["ok"] or caught < 1:
+            raise AssertionError(f"leg 5: the planted fault went uncaught: "
+                                 f"{report}")
+        out["audit"] = {"check_s": audit_s, "watermark": acked[0],
+                        "divergence_caught": caught}
+        standby.stop()
+        return out, launches
+    finally:
+        stop_runtime(mvt)
+
+
+def durable_phase(mvt, rows, device: str, card: str, scratch: str,
+                  ps_leg: dict, sizes=None) -> tuple:
+    """Phase 15: durable serving at configuration 1's width. ``ps_leg`` is
+    phase 14 leg 1's result (no WAL), reported beside leg 1's. Returns
+    (metrics, launch counts of legs 2-3 and of leg 4). ``sizes`` shrinks
+    the legs for a CPU rehearsal."""
+    sz = dict(num_row=ROWS, num_col=COLS, batch=BATCH, wal_rounds=WAL_ROUNDS,
+              clients=SERVE_CLIENTS)
+    sz.update(sizes or {})
+    dims = dict(num_row=sz["num_row"], num_col=sz["num_col"],
+                batch=sz["batch"])
+    t_phase = time.perf_counter()
+    metrics, seconds = {}, {}
+    with ClientPool(max(sz["clients"], FAILOVER_CLIENTS), scratch) as pool:
+        t0 = time.perf_counter()
+        leg1 = metrics["1_wal"] = {"no_wal_phase14": {
+            k: ps_leg[k] for k in ("adds_per_s", "add_us", "get_us")}}
+        for sync in ("batch", "always"):
+            root = os.path.join(scratch, f"wal_{sync}")
+            leg, _ = serve_ps_leg(
+                mvt, rows, device, pool, n_clients=sz["clients"],
+                rounds=sz["wal_rounds"], init_flags=dict(
+                    wal_dir=root, wal_sync=sync), **dims)
+            shutil.rmtree(root, ignore_errors=True)
+            leg1[sync] = {k: leg[k] for k in ("adds_per_s", "add_us",
+                                              "get_us", "matrix_adds",
+                                              "wal")}
+        seconds["1"] = time.perf_counter() - t0
+        print(f"WAL cost (leg 1) on {card}: {json.dumps(leg1)}", flush=True)
+
+        # the later legs' primaries start together, while leg 2 runs
+        ports = {k: free_port() for k in ("async", "bsp", "replica")}
+        prims = {k: spawn_primary(
+            scratch, f"primary_{k}", ports[k], os.path.join(scratch, f"p_{k}"),
+            device, sz["num_row"], sz["num_col"], "--remote-workers=2",
+            *(("--sync",) if k == "bsp" else ())) for k in ports}
+        try:
+            t0 = time.perf_counter()
+            zero_launches(rows)
+            metrics["2_recovery"] = durable_recovery_leg(mvt, rows, device,
+                                                         scratch, **dims)
+            seconds["2"] = time.perf_counter() - t0
+            print(f"crash recovery (leg 2) on {card}: "
+                  f"{json.dumps(metrics['2_recovery'])}", flush=True)
+            for mode in ("async", "bsp"):
+                t0 = time.perf_counter()
+                metrics[f"3_failover_{mode}"] = durable_failover_leg(
+                    mvt, rows, device, pool, scratch, mode, prims[mode],
+                    ports[mode], **dims)
+                seconds[f"3_{mode}"] = time.perf_counter() - t0
+                print(f"warm-standby failover (leg 3, {mode}) on {card}: "
+                      f"{json.dumps(metrics[f'3_failover_{mode}'])}",
+                      flush=True)
+            replay_launches = launch_counts(rows)
+            t0 = time.perf_counter()
+            metrics["4_5_replica_audit"], read_launches = durable_replica_leg(
+                mvt, rows, device, scratch, prims["replica"], **dims)
+            seconds["4_5"] = time.perf_counter() - t0
+            print(f"read replicas and audit (legs 4-5) on {card}: "
+                  f"{json.dumps(metrics['4_5_replica_audit'])}", flush=True)
+        finally:
+            for p in prims.values():
+                if p.proc.poll() is None:
+                    p.kill()
+                p._err.close()
+    metrics["leg_s"] = seconds
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    return metrics, {"2_3_recovery_and_standby": replay_launches,
+                     "4_replica_reads": read_launches}
+
+
 KERNELS = {
     "scatter_add_rows":"multiverso_tpu/ops/pallas_rows.py:172",
     "gather_rows": "multiverso_tpu/ops/pallas_rows.py:107",
@@ -3613,6 +4284,9 @@ def main(argv=None) -> int:
     parser.add_argument("--client", action="store_true",
                         help="run as one client process of phase 14 (the "
                              "script starts these itself)")
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--durable-primary"]:
+        return durable_primary_main(argv[1:])
     args = parser.parse_args(argv)
     if args.client:
         return client_main()
@@ -3778,7 +4452,19 @@ def smoke(args, scratch: str) -> int:
                 raise AssertionError(f"{k}: no launch in the server over "
                                      f"serving leg {leg}")
 
-    # 15. the kernel line, then the verdict
+    # 15. durable serving: the WAL, crash recovery, failover, replicas, audit
+    durable, durable_launches = durable_phase(mvt, rows, "cuda", card, scratch,
+                                              serve["1_ps_tcp"])
+    print(f"durable serving on {card}: {json.dumps(durable)}; launches in "
+          f"this process: {json.dumps(durable_launches)}", flush=True)
+    print(f"durable serving phase: {durable['phase_s']:.1f} s ({card})",
+          flush=True)
+    for leg, kernel in (("2_3_recovery_and_standby", "scatter_add_rows"),
+                        ("4_replica_reads", "gather_rows")):
+        if durable_launches[leg][kernel] <= 0:
+            raise AssertionError(f"{kernel}: no launch over durable {leg}")
+
+    # 16. the kernel line, then the verdict
     table = []
     for k, where in KERNELS.items():
         r = results[k]

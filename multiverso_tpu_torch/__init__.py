@@ -20,7 +20,11 @@ Public surface (MV_* parity, the part ported so far):
     query                          (server-side top-k retrieval pushdown)
     serve / remote_connect / stop_serving
                                    (tables served to other processes)
-    stats / watermark              (slot-free probes of a serving process)
+    stats / watermark / digest     (slot-free probes of a serving process)
+    durable_recover / wal_writer / warm_standby
+                                   (write-ahead log, restart recovery,
+                                    failover and read replicas)
+    audit                          (primary/replica digest comparison)
     net_bind / net_connect / net_finalize / net
                                    (MV_NetBind / MV_NetConnect raw transport)
 
@@ -30,6 +34,14 @@ package reaches a server of either package; ``remote_connect`` gives a
 client's worker-table proxies (host arrays in and out; a client needs no
 card). Set ``remote_workers`` at init so the round clocks and per-worker
 updater state cover the remote clients.
+
+With the ``wal_dir`` flag set ``serve`` logs every remote Add before its
+ACK (``durable/``); ``durable_recover`` replays the log into re-created
+tables after a crash, ``warm_standby`` tails a primary and takes over its
+endpoint when it dies (or, with ``serve_reads()``, answers reads as a
+replica that clients reach through ``remote_connect(...,
+read_endpoints=..., read_preference="replica"|"hedged")``), and ``audit``
+compares the digests of a primary and its replicas.
 
 ``create_table("kv", dtype, capacity=N)`` puts the KV table's keys and
 values on the device (``DeviceKVServer``); the tiered kinds keep a hot set
@@ -48,7 +60,7 @@ and the CPU was not asked for.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Iterator, Optional, Sequence
+from typing import Any, Dict, Iterator, Optional, Sequence
 
 from multiverso_tpu_torch import log  # noqa: F401  (re-export)
 from multiverso_tpu_torch.config import get_flag, parse_cmd_flags, set_flag  # noqa: F401
@@ -239,20 +251,22 @@ def serve(endpoint: str = "127.0.0.1:0") -> str:
     ``remote_workers`` flag at init so BSP clocks and per-worker updater
     state cover the remote clients.
 
-    The JAX package logs every remote Add to a write-ahead log when the
-    ``wal_dir`` flag is set; this package has no ``durable/`` yet, so a
-    set ``wal_dir`` is fatal here rather than served without its log."""
+    With the ``wal_dir`` flag set, serving is durable: every remote Add is
+    write-ahead-logged before its ACK, and any dedup seeds left by
+    ``durable_recover()`` (or a standby's replication tail) repopulate the
+    idempotent-replay window so exactly-once holds across the restart."""
     zoo = Zoo.instance()
     if not zoo.started or zoo.server is None:
         log.fatal("serve: init() the PS runtime first (not available in ma mode)")
-    if str(get_flag("wal_dir")):
-        log.fatal("serve: the wal_dir flag asks for a write-ahead log, and "
-                  "multiverso_tpu_torch has no durable/ package (durable/"
-                  "wal.py) yet; unset wal_dir to serve without durability")
     if not str(get_flag("metrics_role")):
-        # fleet identity for labeled Prometheus exposition
+        # fleet identity for labeled Prometheus exposition; replicas and
+        # standbys stamp their own role when they start serving
         set_flag("metrics_role", "primary")
     if zoo.remote_server is None:
+        wal_dir = str(get_flag("wal_dir"))
+        if wal_dir and zoo.server.wal is None:
+            from multiverso_tpu_torch.durable.wal import WalWriter
+            zoo.server.wal = WalWriter(wal_dir)
         from multiverso_tpu_torch.runtime.remote import RemoteServer
         zoo.remote_server = RemoteServer(zoo)
         if zoo._dedup_seeds:
@@ -262,7 +276,8 @@ def serve(endpoint: str = "127.0.0.1:0") -> str:
             return zoo.remote_server.serve(endpoint)
         except OSError:
             # bind failed (port still held): leave no half-serving state
-            # behind so a retry can call serve() again
+            # behind so a retry — the standby's failover loop — can call
+            # serve() again
             zoo.remote_server.stop()
             zoo.remote_server = None
             raise
@@ -274,9 +289,13 @@ def remote_connect(endpoint: str, timeout: float = 30.0,
                    read_preference: Optional[str] = None):
     """Connect to a serving process (of either package); returns a
     RemoteClient whose ``.table(table_id)`` / ``.tables()`` give
-    worker-table proxies. Needs no ``init`` and no card. The read tier
-    (``read_endpoints``, ``read_preference``) is not ported yet: asking
-    for it raises."""
+    worker-table proxies. Needs no ``init`` and no card.
+
+    ``read_endpoints`` (serving read replicas of this primary, see
+    ``mvt.warm_standby(...).serve_reads()``) plus a non-primary
+    ``read_preference`` (replica|hedged; default: the ``read_preference``
+    flag) route Gets through the read tier — bounded-staleness client
+    cache, budget-admitted replicas, transparent primary fallback."""
     from multiverso_tpu_torch.runtime.remote import RemoteClient
     return RemoteClient(endpoint, timeout=timeout,
                         read_endpoints=(list(read_endpoints)
@@ -294,9 +313,11 @@ def stats(endpoint: str, timeout: float = 10.0):
 
 
 def watermark(endpoint: str, timeout: float = 10.0):
-    """Watermark probe: ``{"role", "watermark", "primary_watermark",
-    "lag"}`` for a serving endpoint. Slot-free, like ``stats``; a server
-    of this package has no write-ahead log, so its watermark is -1."""
+    """Watermark probe (read-replica tier): ``{"role", "watermark",
+    "primary_watermark", "lag"}`` for any serving endpoint — a primary
+    reports its WAL append sequence (-1 without a WAL), a read replica its
+    replay sequence and how many records it trails its primary by.
+    Slot-free, like ``stats``."""
     from multiverso_tpu_torch.runtime.remote import fetch_watermark
     return fetch_watermark(endpoint, timeout=timeout)
 
@@ -304,12 +325,93 @@ def watermark(endpoint: str, timeout: float = 10.0):
 def stop_serving() -> None:
     """Stop the remote table server while keeping the runtime up. A later
     ``serve()`` binds fresh — the server-restart path: restart,
-    ``checkpoint.restore_tables(...)``, ``serve()`` on the old endpoint,
-    and reconnecting clients resume."""
+    ``checkpoint.restore_tables(...)`` (or ``durable_recover()``),
+    ``serve()`` on the old endpoint, and reconnecting clients resume."""
     zoo = Zoo.instance()
     if zoo.remote_server is not None:
         zoo.remote_server.stop()
         zoo.remote_server = None
+    if zoo.server is not None and zoo.server.wal is not None:
+        zoo.server.wal.close()
+        zoo.server.wal = None
+
+
+def durable_recover(tables: Optional[Sequence[Any]] = None,
+                    directory: Optional[str] = None):
+    """Exactly-once restart recovery: load the manifest snapshot, replay
+    the WAL — truncating any torn tail — and stage the replayed req-ids so
+    the next ``serve()`` rebuilds its dedup window. Call after
+    ``create_table`` (same order as before the crash) and BEFORE
+    ``serve()``. Returns the
+    :class:`~multiverso_tpu_torch.durable.wal.RecoveryResult`."""
+    from multiverso_tpu_torch.durable.wal import recover
+    zoo = Zoo.instance()
+    directory = directory or str(get_flag("wal_dir"))
+    if not directory:
+        log.fatal("durable_recover: pass a directory or set the wal_dir "
+                  "flag")
+    source = list(tables) if tables is not None else list(zoo._worker_tables)
+    result = recover(source, directory)
+    zoo._dedup_seeds = result.seeds
+    return result
+
+
+def wal_writer():
+    """The serving process's WAL writer (None until ``serve()`` runs with
+    the ``wal_dir`` flag set) — pass it to ``CheckpointDriver(...,
+    wal=mvt.wal_writer())`` so snapshots compact the log."""
+    zoo = Zoo.instance()
+    return zoo.server.wal if zoo.server is not None else None
+
+
+def warm_standby(primary_endpoint: str, service_endpoint: str,
+                 tables: Optional[Sequence[Any]] = None,
+                 lease_seconds: Optional[float] = None,
+                 takeover: bool = True):
+    """Start a warm standby tailing ``primary_endpoint``'s WAL; on primary
+    lease expiry it binds ``service_endpoint`` and clients fail over
+    transparently (durable/standby.py). Returns the started
+    :class:`~multiverso_tpu_torch.durable.standby.WarmStandby` — call
+    ``.serve_reads()`` on it to promote it into a serving read replica.
+    ``takeover=False`` builds a pure read replica: several can tail one
+    primary without racing to bind its endpoint when it dies."""
+    from multiverso_tpu_torch.durable.standby import WarmStandby
+    return WarmStandby(primary_endpoint, service_endpoint, tables=tables,
+                       lease_seconds=lease_seconds,
+                       takeover=takeover).start()
+
+
+def digest(endpoint: str, timeout: Optional[float] = None):
+    """Per-table content digests of any serving endpoint — primary,
+    replica, or standby serving reads — at its exact watermark:
+    ``{"role", "endpoint", "watermark", "layout_version", "tables":
+    {tid: {"digest", "rows"}}}``. Order-independent over (id,
+    row-bytes), so primaries and replicas of either package compare equal
+    iff their applied state is equal. Slot-free."""
+    from multiverso_tpu_torch.runtime.remote import fetch_digest
+    if timeout is None:
+        timeout = float(get_flag("audit_timeout_seconds"))
+    return fetch_digest(endpoint, timeout=timeout)
+
+
+def audit(fleet, interval: Optional[float] = None,
+          manifest: Optional[Dict[str, Any]] = None):
+    """The continuous fleet auditor (obs/audit.py): compare
+    primary↔replica state digests at a common watermark and check the
+    acked-Add conservation ledger across probes; on mismatch fire
+    ``AUDIT_DIVERGENCE`` through the flight-recorder path with both
+    digests and the watermark vector attached. ``fleet`` is a primary
+    endpoint, a list of them, or ``{"endpoints": [...], "replicas":
+    [[...], ...]}``. Returns a
+    :class:`~multiverso_tpu_torch.obs.audit.FleetAuditor` — already
+    running in the background when ``interval`` (or the
+    ``audit_interval_seconds`` flag) is > 0; call ``.check()`` yourself
+    for a one-shot report."""
+    from multiverso_tpu_torch.obs.audit import FleetAuditor
+    auditor = FleetAuditor(fleet, interval=interval, manifest=manifest)
+    if auditor.interval > 0:
+        auditor.start()
+    return auditor
 
 
 # -- raw net mode (MV_NetBind / MV_NetConnect / MV_NetFinalize) --------------

@@ -19,9 +19,13 @@ Loads write into the tables' existing tensors, so functions that closed
 over them (registered programs, device transactions) see the restored
 values.
 
-Not yet ported: the WAL-driven durable snapshot (``CheckpointDriver(wal=
-...)``, with ``durable/``) and multihost snapshots (the leader check
-passes on rank 0 only).
+``CheckpointDriver(wal=mvt.wal_writer())`` switches to the durable
+protocol of ``durable/wal.py``: one dispatcher-serialised block rotates
+the log, stores every table into ``gen_<g>/``, commits the MANIFEST and
+retires older segments and generations.
+
+Not yet ported: multihost snapshots (the leader check passes on rank 0
+only).
 """
 
 from __future__ import annotations
@@ -194,19 +198,28 @@ class CheckpointDriver:
     written to ``<directory>/table_<id>.mvckpt`` with an atomic rename.
     ``directory`` is a URI: any registered scheme works.
 
-    ``wal``: the durable protocol of the JAX package (snapshot + log
-    compaction) is not ported; passing a WAL writer is fatal.
+    ``wal``: a :class:`multiverso_tpu_torch.durable.wal.WalWriter`
+    (``mvt.wal_writer()`` on a serving process) switches snapshots to the
+    durable protocol — one dispatcher-serialized block that rotates the
+    log, stores every table into a fresh ``gen_<g>/`` directory, commits
+    the MANIFEST, and retires segments/generations older than the
+    snapshot. Restart recovery for that layout is ``mvt.durable_recover``
+    (snapshot + WAL replay), not :meth:`restore`.
     """
 
     def __init__(self, tables: List, directory: str,
                  interval_steps: Optional[int] = None,
                  interval_seconds: Optional[float] = None,
                  wal=None) -> None:
-        if wal is not None:
-            log.fatal("CheckpointDriver(wal=...): WAL not ported to "
-                      "multiverso_tpu_torch (it arrives with durable/)")
         self.tables = list(tables)
         self.directory = directory
+        self.wal = wal
+        if wal is not None and wal.directory != directory:
+            # one root holds MANIFEST + gen_<g>/ + wal/ — recovery reads
+            # them as a unit, so a split layout could never be replayed
+            log.fatal("CheckpointDriver: directory %r must equal the WAL "
+                      "root %r (MANIFEST, snapshots and segments are one "
+                      "recovery unit)", directory, wal.directory)
         self.interval_steps = interval_steps
         self.interval_seconds = interval_seconds
         self._fs = mv_io.fs_for(directory)
@@ -234,10 +247,33 @@ class CheckpointDriver:
 
     def snapshot(self) -> None:
         with self._lock:
+            if self.wal is not None:
+                self._durable_snapshot()
+                return
             for table in self.tables:
                 store_table(table, _table_path(self.directory, table))
             log.debug("checkpoint: snapshot of %d tables -> %s",
                       len(self.tables), self.directory)
+
+    def _durable_snapshot(self) -> None:
+        """Snapshot + log compaction as ONE dispatcher-serialized block:
+        no add can land between the rotation and the stores, so segments
+        >= the rotation point contain exactly the post-snapshot adds.
+        The MANIFEST commit is the atomic switch; a crash anywhere in
+        here leaves the previous (generation, first_segment) pair live
+        and fully replayable."""
+        def run():
+            first_segment = self.wal.rotate()
+            generation = self.wal.generation + 1
+            gen_dir = mv_io.join(self.directory, f"gen_{generation}")
+            self._fs.makedirs(gen_dir)
+            for table in self.tables:
+                store_table(table, _table_path(gen_dir, table))
+            self.wal.commit_snapshot(generation, first_segment)
+        _run_serialized(run)
+        log.debug("checkpoint: durable snapshot of %d tables -> %s "
+                  "(generation %d)", len(self.tables), self.directory,
+                  self.wal.generation)
 
     def restore(self) -> bool:
         """Load the latest snapshot; returns False when none exists."""

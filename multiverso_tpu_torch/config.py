@@ -342,10 +342,55 @@ define_int("dedup_window", 4096,
            "server-side request-id dedup window (entries) bounding the "
            "idempotent-replay cache for retried remote requests")
 
+# Durability subsystem (multiverso_tpu_torch/durable/): WAL + restart
+# recovery + warm-standby failover.
 define_string("wal_dir", "",
-              "durability root of the JAX package's write-ahead log. The "
-              "port has no durable/ package yet: serve() refuses to run "
-              "with this flag set rather than serve without the log")
+              "durability root: when set, serve() write-ahead-logs every "
+              "remote Add (CRC-checksummed records under <wal_dir>/wal/) "
+              "before it is ACKed; restart recovery = mv.durable_recover() "
+              "(snapshot + WAL replay + dedup-window rebuild), compaction "
+              "= CheckpointDriver(..., wal=mv.wal_writer()). Empty disables")
+define_string("wal_sync", "batch",
+              "WAL durability barrier per append: none (buffered — the "
+              "tail can be lost even to a process crash), batch (flush to "
+              "the OS — survives kill -9, not power loss; the default), "
+              "always (fsync — survives power loss, slowest)")
+
+# Read-replica serving tier (durable/standby.py serve loop + runtime/read.py
+# client-side cache and routing).
+define_string("read_preference", "primary",
+              "where a remote client's Gets go: primary (every Get takes "
+              "a primary worker slot — the pre-replica behavior), replica "
+              "(round-robin over read replicas whose replay watermark "
+              "satisfies the staleness budget, falling back to the "
+              "primary when none qualifies), hedged (replica, plus a "
+              "second endpoint fired after a p95-derived delay; first "
+              "reply wins, the loser is cancelled)")
+define_int("read_staleness_records", 1024,
+           "staleness budget for replica-served Gets, in WAL records: a "
+           "replica may answer only while its replay watermark is within "
+           "this many records of the primary's append watermark "
+           "(generalized SSP bound — clocks become reads); -1 = unbounded "
+           "(any live replica answers)")
+define_int("client_cache_bytes", 0,
+           "client-side bounded-staleness read cache capacity (bytes, "
+           "LRU by table/key): a cached Get is served without touching "
+           "the wire while its watermark stays within "
+           "read_staleness_records of the newest watermark the client "
+           "has observed AND its lease (read_lease_seconds) is live. "
+           "0 disables the cache")
+define_double("read_lease_seconds", 0.25,
+              "client cache entry lease: the blind window during which a "
+              "cached read may be re-served without any wire contact "
+              "(watermark invalidation still applies the instant a newer "
+              "watermark is observed)")
+define_double("read_timeout_seconds", 1.0,
+              "deadline for one replica read attempt before the client "
+              "falls back (next replica, then primary); also the cap on "
+              "the hedged second-fire delay")
+define_double("read_hedge_ms", 0.0,
+              "hedged-read second-fire delay in milliseconds; 0 derives "
+              "it from the p95 of recent replica read latencies")
 
 define_string("flight_recorder_path", "",
               "append flight-recorder dumps (event + dashboard snapshot + "
@@ -365,6 +410,13 @@ define_bool("trace_requests", True,
             "originating req_id; hop recording itself is always on for "
             "nonzero req_ids — this flag only controls propagation")
 
+define_bool("trace_read_confirm", True,
+            "a traced replica-served Get additionally fires a slot-free "
+            "Control_Watermark frame at the primary stamped with the "
+            "SAME req_id — the trace then spans client, replica AND the "
+            "primary watermark path, and the client's cache horizon "
+            "advances off the authoritative append watermark")
+
 define_int("trace_export_max", 256,
            "how many recent traces a Control_Traces reply ships (each "
            "process's trace ring holds 512)")
@@ -380,6 +432,18 @@ define_double("flight_recorder_min_interval_seconds", 0.0,
               "whose reason fired within this many seconds is suppressed "
               "(counted in FLIGHT_DUMPS_SUPPRESSED); 0 disables the "
               "rate limit — a flapping alert should set this to O(10s)")
+
+define_double("audit_interval_seconds", 0.0,
+              "period of the continuous fleet auditor (mv.audit): every "
+              "interval it pulls Control_Digest from each primary and "
+              "replica, compares them at a common watermark and fires "
+              "AUDIT_DIVERGENCE through the flight-recorder path on "
+              "mismatch; 0 = one-shot checks only (no background thread)")
+define_double("audit_timeout_seconds", 30.0,
+              "per-endpoint timeout for Control_Digest / Control_Cut "
+              "probes: a dead or wedged member lands on the audit "
+              "report's unreachable list (or fails the cut) instead of "
+              "hanging the coordinator")
 
 define_int("metrics_shard", -1,
            "this process's shard index for Prometheus labels "

@@ -17,10 +17,18 @@ monitor section is also a ``torch.profiler.record_function`` scope, so
 named sections show up in the run's profiler trace. Times are host-clock
 seconds.
 
-Not ported yet, with the modules that feed them: the write-ahead log's
-gauges and counters (``durable/``, the WAL hooks of the dispatcher) and
-the read tier's (``runtime/read.py``), and the fleet views over many
-snapshots (``obs/collector.py``, ``obs/slo.py``).
+Series are created by name on first use. The durable path writes
+``WAL_APPENDS``, ``WAL_APPEND_SECONDS``, ``WAL_FSYNC_SECONDS`` (under
+``wal_sync=always``), ``WAL_BACKLOG_BYTES``, ``WAL_REPLAYED``,
+``WAL_TRUNCATED_TAIL`` and ``SNAPSHOT_COMPACTIONS`` (``durable/wal.py``),
+``FAILOVERS``, ``REPLICA_WATERMARK``, ``REPLICA_LAG_RECORDS`` and
+``REPLICA_GAP_RESYNCS`` (``durable/standby.py``), the read tier's
+``READ_*`` family (``runtime/read.py``) and ``AUDIT_RUNS``,
+``AUDIT_DIVERGENCE``, ``AUDIT_SKEW_SKIPS`` and ``AUDIT_UNREACHABLE``
+(``obs/audit.py``).
+
+Not ported yet: the fleet views over many snapshots
+(``obs/collector.py``, ``obs/slo.py``).
 """
 
 from __future__ import annotations

@@ -312,8 +312,11 @@ def corrupt_table_row(table, row: int) -> bool:
     torn restore — lives in applied state, which is what the fleet
     auditor's digests compare. Call under the owning dispatcher seam
     (``run_serialized`` / ``WarmStandby._run``); returns False when the
-    row cannot be located."""
+    row cannot be located. A dense table's tensor (``data``: array,
+    matrix) is flipped in place on its device; the JAX package's version
+    finds no row there."""
     import numpy as np
+    import torch
     server = getattr(table, "_server_table", table)
     action = "state_corrupt"
     row = int(row)
@@ -355,6 +358,16 @@ def corrupt_table_row(table, row: int) -> bool:
     if isinstance(store, np.ndarray):
         target = store[row] if store.ndim > 1 and row < len(store) else store
         return flip(np.atleast_1d(target))
+    data = getattr(server, "data", None)
+    if isinstance(data, torch.Tensor) and 0 <= row < data.shape[0]:
+        # the dense tables' tensor state (array, matrix), on its device:
+        # flip the low bit of the row's first byte in place
+        target = data[row] if data.dim() > 1 else data[row:row + 1]
+        target.view(torch.uint8).view(-1)[:1].bitwise_xor_(1)
+        count(f"FAULT_INJECTED_{action.upper()}")
+        log.error("chaos: corrupted applied state of table %s row %d "
+                  "(drill)", getattr(server, "table_id", "?"), row)
+        return True
     return False
 
 

@@ -10,11 +10,11 @@ and ``register_fs`` its directory operations. Checkpoints
 (``checkpoint.py``), the word2vec corpus and embedding files and the
 logistic-regression readers all read and write through this layer.
 
-Registered here: plain paths and ``file://``. A scheme with no registered
-factory raises (``log.fatal``); it never falls back to a local path.
-
-Not yet ported: ``mvfs://`` (``io/mvfs.py``, with the wire) and the
-``fsspec`` fallback for cloud schemes.
+Registered here: plain paths, ``file://`` and ``mvfs://`` (the
+socket-served remote filesystem, :mod:`~multiverso_tpu_torch.io.mvfs`). A
+scheme with no registered factory raises (``log.fatal``); it never falls
+back to a local path: the JAX package's ``fsspec`` fallback for cloud
+schemes is not ported.
 """
 
 from __future__ import annotations
@@ -64,8 +64,9 @@ class Stream:
 
     def sync(self) -> None:
         """Durability barrier: on return, everything written so far has
-        reached stable storage (fsync where the scheme has one); schemes
-        without a real barrier degrade to flush()."""
+        reached stable storage (fsync where the scheme has one). The WAL's
+        ``wal_sync=always`` policy rides this; schemes without a real
+        barrier degrade to flush()."""
         self.flush()
 
     def close(self) -> None:
@@ -239,3 +240,8 @@ class TextReader:
 
     def close(self) -> None:
         self._stream.close()
+
+
+# Second storage scheme: socket-served remote filesystem (the hdfs:// analog).
+# Imported last — mvfs.py uses the names defined above.
+from multiverso_tpu_torch.io import mvfs  # noqa: E402,F401

@@ -39,9 +39,11 @@ and the two trainers. What changes with the framework:
   host numpy, so the same seeds give the JAX trainer's pairs and
   negatives.
 
-Not yet ported: the multihost branches. Remote proxies read from the
-primary: the read tier (``runtime/read.py``) is not ported, nor the
-write-ahead log hooks that would log the pushes on the server.
+Remote proxies of a client connected with ``read_endpoints`` read through
+the read tier (``runtime/read.py``), and a server with the ``wal_dir``
+flag logs the pushes, as in the JAX package.
+
+Not yet ported: the multihost branches.
 """
 
 from __future__ import annotations

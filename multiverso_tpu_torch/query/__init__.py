@@ -9,8 +9,11 @@ device for matrix and sparse tables, host scans of the hot block and the
 cold segments for tiered ones. :func:`merge_topk` merges partial answers
 under the same ordering contract.
 
-Not yet ported: the shard router's fan-out and merge over shards and the
-replica read tier (they wait for the wire, ``ROADMAP.md``).
+A remote client's queries ride the read tier (``runtime/read.py``): a
+read replica answers them under the same staleness budget as a Get.
+
+Not yet ported: the shard router's fan-out and merge over shards (it
+waits for ``shard/``, ``ROADMAP.md``).
 """
 
 __all__ = ["merge_topk", "query_table"]

@@ -33,11 +33,18 @@ clock gates. Transports are built through
 :func:`multiverso_tpu_torch.fault.inject.make_net`, so the whole path runs
 under seeded fault injection via config flags.
 
+Durable serving (``durable/``): with a write-ahead log attached to the
+dispatcher (``mv.serve`` under the ``wal_dir`` flag) every wire Add carries
+its raw blobs to the dispatcher's append, replies and heartbeats carry the
+log's append watermark, a ``Control_Replicate`` subscriber (a warm standby
+or a read replica) receives a quiesced state transfer and then every
+record, and ``Control_Digest`` answers the fleet auditor. ``Request_Read``
+is the read tier's slot-free primary Get (``runtime/read.py`` routes a
+client's Gets through replicas and falls back here).
+
 Not yet ported (``ROADMAP.md`` queue 1), and refused with an error that
-names the missing module: the write-ahead log and what stands on it
-(``durable/``: standby replication, consistent cuts), the shard group's
-layout and live migration (``shard/``), the digest probe
-(``obs/audit.py``) and the client read tier (``runtime/read.py``).
+names the missing module: consistent cuts (``durable/cut.py``), the shard
+group's layout and live migration (``shard/``).
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch import config, log
+from multiverso_tpu_torch import io as mv_io
 from multiverso_tpu_torch.dashboard import Dashboard, count, gauge_set, observe
 from multiverso_tpu_torch.fault.detector import LivenessDetector
 from multiverso_tpu_torch.fault.inject import make_net
@@ -147,10 +155,10 @@ class _NetCompletion:
                     getattr(error, "wire_text", None) or repr(error))
 
 
-class _QueryCompletion:
-    """Completion for a slot-free Request_Query: replies Reply_Query.
-    Idempotent like a read — no dedup entry; a replayed query just
-    re-scores."""
+class _ReadCompletion:
+    """Completion for a slot-free Request_Read: replies Reply_Read stamped
+    with the primary's append watermark. No dedup entry — reads are
+    idempotent, a replayed read just re-serves."""
 
     __slots__ = ("_server", "_conn", "_template", "_compress")
 
@@ -168,36 +176,40 @@ class _QueryCompletion:
                       watermark=self._server.append_watermark(),
                       data=wire.encode(_host_reply(payload),
                                        compress=self._compress))
-        hop(t.req_id, "query_reply_sent")
+        hop(t.req_id, "read_reply_sent")
         try:
             self._server._net.send_via(self._conn, msg)
         except OSError as exc:
-            log.error("remote: query reply failed: %r", exc)
+            log.error("remote: read reply failed: %r (the client falls "
+                      "back to another endpoint)", exc)
 
     def done(self, result: Any) -> None:
-        count("QUERIES_SERVED_PRIMARY")
-        self._reply(MsgType.Reply_Query, result)
+        count("READS_SERVED_PRIMARY")
+        self._reply(MsgType.Reply_Read, result)
 
     def fail(self, error: BaseException) -> None:
         self._reply(MsgType.Reply_Error,
                     getattr(error, "wire_text", None) or repr(error))
 
 
+class _QueryCompletion(_ReadCompletion):
+    """Completion for a slot-free Request_Query on the primary: replies
+    Reply_Query stamped with the append watermark. Idempotent like a
+    read — no dedup entry; a replayed query just re-scores."""
+
+    __slots__ = ()
+
+    def done(self, result: Any) -> None:
+        count("QUERIES_SERVED_PRIMARY")
+        self._reply(MsgType.Reply_Query, result)
+
+
 # control frames whose serving side stands on a module this package does
 # not have yet: each is answered with a Reply_Error naming that module
 _NOT_PORTED = {
-    MsgType.Control_Digest: (
-        "state digests need obs/audit.py (digest_payload), which "
-        "multiverso_tpu_torch does not have yet"),
     MsgType.Control_Cut: (
-        "consistent cuts need durable/cut.py and a write-ahead log, which "
-        "multiverso_tpu_torch does not have yet"),
-    MsgType.Request_Read: (
-        "replica reads belong to the read tier (runtime/read.py), which "
-        "multiverso_tpu_torch does not have yet; send a Request_Get"),
-    MsgType.Control_Replicate: (
-        "standby replication needs durable/standby.py and a write-ahead "
-        "log, which multiverso_tpu_torch does not have yet"),
+        "consistent cuts need durable/cut.py, which multiverso_tpu_torch "
+        "does not have yet"),
     MsgType.Control_Layout: (
         "no shard layout: shard groups (shard/) are not in "
         "multiverso_tpu_torch yet"),
@@ -234,14 +246,23 @@ class RemoteServer:
         self._dedup: "OrderedDict[int, Any]" = OrderedDict()
         self._dedup_lock = threading.Lock()
         self._dedup_max = max(16, int(config.get_flag("dedup_window")))
+        # warm-standby replication subscribers (durable/standby.py):
+        # connections that receive every WAL record + periodic heartbeats
+        self._standbys: List[Any] = []
+        self._standby_lock = threading.Lock()
+        self._standby_hb: Optional[threading.Thread] = None
+        self._standby_hb_stop = threading.Event()
         self.liveness = LivenessDetector(
             float(config.get_flag("lease_seconds")))
         self.endpoint: Optional[str] = None
 
     def append_watermark(self) -> int:
-        """The primary's WAL append sequence: always -1 here (serving
-        without durability has no staleness unit; the port has no WAL)."""
-        return -1
+        """The primary's WAL append sequence (-1 when serving without
+        durability — no staleness unit exists then). Reads a plain int
+        written on the dispatcher thread; safe from any thread."""
+        server = self._zoo.server
+        wal = server.wal if server is not None else None
+        return int(wal.seq) if wal is not None else -1
 
     def serve(self, endpoint: str = "127.0.0.1:0") -> str:
         """Bind + start the pump; returns the dialable endpoint."""
@@ -249,6 +270,10 @@ class RemoteServer:
         if self._zoo.server is not None:
             # the sync watchdog polls this to escalate stalls to evictions
             self._zoo.server.liveness = self.liveness
+            if self._zoo.server.wal is not None:
+                # replication fan-out: every durable append reaches the
+                # subscribed standbys over their replication connections
+                self._zoo.server.wal.add_observer(self._replicate_record)
         self._thread = threading.Thread(target=self._pump, daemon=True,
                                         name="mv-remote-serve")
         self._thread.start()
@@ -258,6 +283,10 @@ class RemoteServer:
         if (self._zoo.server is not None
                 and self._zoo.server.liveness is self.liveness):
             self._zoo.server.liveness = None
+        self._standby_hb_stop.set()
+        if self._standby_hb is not None:
+            self._standby_hb.join(timeout=10)
+            self._standby_hb = None
         self._net.finalize()
         if self._thread is not None:
             self._thread.join(timeout=10)
@@ -312,6 +341,120 @@ class RemoteServer:
             while len(self._dedup) > self._dedup_max:
                 self._dedup.popitem(last=False)
 
+    # -- warm-standby replication (durable/standby.py) -----------------------
+    def _replicate_record(self, seq: int, req_id: int, worker: int,
+                          table_id: int, msg_id: int, blobs) -> None:
+        """WAL observer: forward one durable record to every subscribed
+        standby. Runs on the dispatcher thread right after the append, so
+        a record the primary ACKs was already written to each standby's
+        socket before the ACK frame — the kernel delivers it even if the
+        primary dies the next instant. Each record carries its append
+        sequence so replicas track their replay watermark and DETECT
+        stream gaps (a missing sequence forces a resubscribe)."""
+        with self._standby_lock:
+            conns = list(self._standbys)
+        for conn in conns:
+            msg = Message(src=worker, dst=-1,
+                          type=MsgType.Control_Wal_Record,
+                          table_id=table_id, msg_id=msg_id, req_id=req_id,
+                          watermark=seq, data=list(blobs))
+            try:
+                # flush: the record must reach the standby's socket before
+                # the client's ACK is even queued — the two frames ride
+                # different connections, so the dispatcher-thread order
+                # alone does not give the kernel-delivery order
+                self._net.send_via(conn, msg, flush=True)
+            except OSError as exc:
+                log.error("remote: replication to a standby failed (%r); "
+                          "dropping the subscriber — it will resubscribe "
+                          "with a full state transfer", exc)
+                with self._standby_lock:
+                    if conn in self._standbys:
+                        self._standbys.remove(conn)
+
+    def _subscribe_standby(self, msg: Message) -> None:
+        """Handle Control_Replicate: quiesced full-state transfer (every
+        table + the Add half of the dedup window), then subscribe the
+        connection to the live record stream. The snapshot and the
+        subscription happen in ONE dispatcher-serialized block, so no add
+        can fall between them. ``store`` reads each table's tensors to
+        host bytes inside the block, so later Adds cannot show through."""
+        wal = self._zoo.server.wal
+        if wal is None:
+            self._refuse(msg, "replication needs durability: start the "
+                              "primary with the wal_dir flag")
+            return
+
+        def transfer():
+            tables = {}
+            for table_id, table in list(self._zoo.server._tables.items()):
+                stream = mv_io.MemoryStream()
+                table.store(stream)
+                tables[int(table_id)] = np.frombuffer(
+                    stream.getvalue(), dtype=np.uint8)
+            with self._dedup_lock:
+                dedup = [[m.req_id, m.dst, m.msg_id]
+                         for m in self._dedup.values()
+                         if isinstance(m, Message)
+                         and m.type == MsgType.Reply_Add]
+            with self._standby_lock:
+                # idempotent: a gap-triggered resubscribe arrives over the
+                # SAME live connection — double-adding it would double
+                # every later record
+                if msg._conn not in self._standbys:
+                    self._standbys.append(msg._conn)
+            # the snapshot's watermark, read inside the serialized block:
+            # every record the standby will see next has seq > this
+            return tables, dedup, int(wal.seq)
+
+        tables, dedup, watermark = self._zoo.server.run_serialized(
+            transfer, timeout=None)
+        self._net.send_via(msg._conn, Message(
+            src=0, dst=msg.src, type=MsgType.Control_Reply_Replicate,
+            msg_id=msg.msg_id, req_id=msg.req_id, watermark=watermark,
+            data=wire.encode({"tables": tables, "dedup": dedup,
+                              "watermark": watermark})))
+        log.info("remote: standby subscribed (%d table(s), %d dedup "
+                 "seed(s) transferred)", len(tables), len(dedup))
+        self._ensure_standby_heartbeats()
+
+    def _ensure_standby_heartbeats(self) -> None:
+        """Primary→standby heartbeats: the standby's lease on the primary
+        must stay renewed while the WAL idles, or a quiet training lull
+        would look like primary death."""
+        if self._standby_hb is not None:
+            return
+        period = float(config.get_flag("heartbeat_seconds"))
+        if period <= 0:
+            return
+        self._standby_hb = threading.Thread(
+            target=self._standby_heartbeat_loop, args=(period,),
+            daemon=True, name="mv-remote-standby-hb")
+        self._standby_hb.start()
+
+    def _standby_heartbeat_loop(self, period: float) -> None:
+        while not self._standby_hb_stop.wait(period):
+            try:
+                # a fresh frame per beat: the watermark stamp keeps the
+                # replicas' view of the primary's append position current
+                # while the WAL idles
+                beat = Message(src=0, dst=-1,
+                               type=MsgType.Control_Heartbeat,
+                               watermark=self.append_watermark())
+                with self._standby_lock:
+                    conns = list(self._standbys)
+                for conn in conns:
+                    try:
+                        self._net.send_via(conn, beat)
+                    except OSError:
+                        with self._standby_lock:
+                            if conn in self._standbys:
+                                self._standbys.remove(conn)
+            except Exception as exc:  # noqa: BLE001 — a dead heartbeat
+                # thread starves every standby's lease into a FALSE
+                # failover; log and keep beating
+                log.error("remote: standby heartbeat tick failed: %r", exc)
+
     def _refuse(self, msg: Message, text: str) -> None:
         """Answer a control frame this port cannot serve with a
         Reply_Error naming what is missing (never a silent drop)."""
@@ -358,6 +501,12 @@ class RemoteServer:
         if msg.type == MsgType.Control_Profile:
             self._reply_profile(msg)
             return
+        if msg.type == MsgType.Control_Digest:
+            self._reply_digest(msg)
+            return
+        if msg.type == MsgType.Request_Read:
+            self._serve_read(msg, compress)
+            return
         if msg.type == MsgType.Request_Query:
             self._serve_query(msg, compress)
             return
@@ -367,6 +516,9 @@ class RemoteServer:
             return
         if msg.type == MsgType.Control_Deregister:
             self._deregister_client(msg)
+            return
+        if msg.type == MsgType.Control_Replicate:
+            self._subscribe_standby(msg)
             return
         if msg.type == MsgType.Server_Finish_Train:
             self._zoo.server.send(Message(
@@ -381,20 +533,46 @@ class RemoteServer:
         request = wire.decode(msg.data)
         completion = _NetCompletion(self, msg._conn, msg, compress)
         # req_id rides into the dispatcher so server-side stages (gate
-        # defer/release, apply) land on the request's trace
+        # defer/release, WAL append, apply) land on the request's trace
         forward = Message(
             src=msg.src, dst=-1, type=msg.type, table_id=msg.table_id,
             msg_id=msg.msg_id, req_id=msg.req_id, deadline=msg.deadline,
             data=[request, completion])
+        if (msg.type == MsgType.Request_Add and msg.req_id
+                and self._zoo.server.wal is not None):
+            # raw wire blobs ride along for the dispatcher's write-ahead
+            # append (Server._wal_append) — logged before apply/ACK,
+            # replayed through wire.decode at recovery
+            forward._wal = (msg.req_id, msg.src, msg.table_id, msg.msg_id,
+                            msg.data)
         hop(msg.req_id, "dispatch_enqueue")
         self._zoo.server.send(forward)
 
     @slot_free
+    def _serve_read(self, msg: Message, compress: bool) -> None:
+        """Request_Read on the PRIMARY: a slot-free Get — no worker slot,
+        no lease, no dedup entry. The request rides the dispatcher queue
+        as an administrative Get (src=-1 bypasses every round gate), so
+        it serializes with applies, and the Reply_Read is stamped with the
+        append watermark at reply time. The primary is trivially "fresh",
+        so the request's staleness budget is always satisfied here — this
+        is the fallback target when no replica qualifies."""
+        request = wire.decode(msg.data)
+        completion = _ReadCompletion(self, msg._conn, msg, compress)
+        hop(msg.req_id, "dispatch_enqueue")
+        self._zoo.server.send(Message(
+            src=-1, dst=-1, type=MsgType.Request_Get,
+            table_id=msg.table_id, msg_id=msg.msg_id, req_id=msg.req_id,
+            deadline=msg.deadline,
+            data=[request, completion]))
+
+    @slot_free
     def _serve_query(self, msg: Message, compress: bool) -> None:
-        """Request_Query: slot-free — no worker slot, no lease, no dedup
-        entry. Rides the dispatcher queue under its own type (src=-1,
-        serving lane, never clocked) so the top-k scoring serializes with
-        applies."""
+        """Request_Query on the PRIMARY: slot-free like a Request_Read —
+        no worker slot, no lease, no dedup entry. Rides the dispatcher
+        queue under its own type (src=-1, serving lane, never clocked) so
+        the top-k scoring serializes with applies, and the Reply_Query is
+        stamped with the append watermark at reply time."""
         request = wire.decode(msg.data)
         completion = _QueryCompletion(self, msg._conn, msg, compress)
         hop(msg.req_id, "dispatch_enqueue")
@@ -456,6 +634,33 @@ class RemoteServer:
                               "endpoint": self.endpoint or "",
                               "t_reply_ns": time.time_ns(),
                               "profile": PROFILER.report()})))
+
+    @slot_free
+    def _reply_digest(self, msg: Message) -> None:
+        """Control_Digest: per-table order-independent content digests at
+        this primary's EXACT append watermark — digest and watermark are
+        read in one dispatcher-serialized block, so no Add can land
+        between them (the digest reads each table to host bytes there).
+        Slot-free like the stats probe. This package serves no shard
+        layouts, so the layout version is an unsharded primary's 0."""
+        from multiverso_tpu_torch.obs.audit import digest_payload
+        server = self._zoo.server
+        t0 = time.perf_counter()
+
+        def run():
+            wal = server.wal
+            return digest_payload(
+                server._tables, role="primary", endpoint=self.endpoint or "",
+                watermark=int(wal.seq) if wal is not None else -1,
+                layout_version=0)
+
+        payload = server.run_serialized(run, timeout=None)
+        observe("AUDIT_DIGEST_SECONDS", time.perf_counter() - t0)
+        self._net.send_via(msg._conn, Message(
+            src=0, dst=msg.src, type=MsgType.Control_Reply_Digest,
+            msg_id=msg.msg_id, req_id=msg.req_id,
+            watermark=int(payload.get("watermark", -1)),
+            data=wire.encode(payload)))
 
     @slot_free
     def _reply_stats(self, msg: Message) -> None:
@@ -655,6 +860,18 @@ def fetch_stats(endpoint: str, timeout: float = 10.0) -> StatsSnapshot:
                                        timeout=timeout, what="stats"))
 
 
+def fetch_digest(endpoint: str, timeout: float = 30.0) -> Dict[str, Any]:
+    """One-shot state-digest probe: ``{"role", "endpoint", "watermark",
+    "layout_version", "tables": {tid: {"digest", "rows"}}}`` from any
+    serving process — primary, replica, or standby serving reads —
+    computed under its dispatcher seam so the (digest, watermark) pair
+    is exact. Slot-free. The fleet auditor (obs/audit.py) compares
+    these across roles at a common watermark."""
+    return control_probe(endpoint, MsgType.Control_Digest,
+                         MsgType.Control_Reply_Digest,
+                         timeout=timeout, what="digest")
+
+
 # -- client side -------------------------------------------------------------
 
 class RemoteChannel:
@@ -701,19 +918,17 @@ class RemoteClient:
     heartbeats. ``reconnect_deadline_seconds=0`` restores the fail-fast
     posture: any connection loss fails all pending requests immediately.
 
-    The read tier (``read_endpoints=``/``read_preference=``: replica-first
-    Gets through ``runtime/read.py``'s ``ReadRouter``) is not ported yet;
-    asking for it raises before anything connects."""
+    Read tier: with ``read_endpoints`` (serving read replicas) and a
+    non-primary ``read_preference``, Gets and queries route through
+    :class:`~multiverso_tpu_torch.runtime.read.ReadRouter` — client cache,
+    then budget-admitted replicas (hedged optionally), then the primary as
+    the transparent fallback. Adds always go to the primary. Pipelined
+    tables bypass the tier (their Gets depend on per-worker server state a
+    replica does not track)."""
 
     def __init__(self, endpoint: str, timeout: float = 30.0,
                  read_endpoints: Optional[List[str]] = None,
                  read_preference: Optional[str] = None) -> None:
-        if read_endpoints or read_preference is not None:
-            raise NotImplementedError(
-                "read_endpoints= and read_preference= need the read tier "
-                "(runtime/read.py, ReadRouter), which multiverso_tpu_torch "
-                "does not have yet; connect without them to read from the "
-                "primary")
         self._net = make_net()
         self._net.rank = -1
         self._net.connect([endpoint])
@@ -741,6 +956,10 @@ class RemoteClient:
             config.get_flag("request_deadline_seconds"))
         self._retry_budget = RetryBudget.from_flags()
         self._breaker = CircuitBreaker.from_flags()
+        # set BEFORE the pump starts (the pump observes reply watermarks
+        # through it); the router itself is built after registration
+        self._read_router = None
+        self._read_ok: Dict[int, bool] = {}
         self._pump_thread = threading.Thread(
             target=self._pump, daemon=True, name="mv-remote-client")
         self._pump_thread.start()
@@ -753,6 +972,29 @@ class RemoteClient:
             self._net.finalize()
             raise
         self._channel = RemoteChannel(self)
+        preference = (read_preference if read_preference is not None
+                      else str(config.get_flag("read_preference")))
+        if read_endpoints and preference != "primary":
+            from multiverso_tpu_torch.runtime.read import ReadRouter
+
+            def primary_submit(table_id, request, completion):
+                self._send(table_id, MsgType.Request_Get, request,
+                           next_msg_id(), completion, direct=True)
+
+            def primary_query_submit(table_id, request, completion):
+                self._send(table_id, MsgType.Request_Query, request,
+                           next_msg_id(), completion, direct=True)
+
+            self._read_router = ReadRouter(
+                list(read_endpoints), preference, primary_submit,
+                req_id_source=(self._next_req_id if self._trace else None),
+                watermark_confirm=(
+                    self._confirm_watermark
+                    if self._trace
+                    and bool(config.get_flag("trace_read_confirm"))
+                    else None),
+                retry_budget=self._retry_budget,
+                primary_query_submit=primary_query_submit)
         self._start_maintenance()
 
     # -- lifecycle -----------------------------------------------------------
@@ -761,6 +1003,8 @@ class RemoteClient:
             return
         self._closed = True
         self._stop_maint.set()
+        if self._read_router is not None:
+            self._read_router.close()
         try:
             self._net.send(Message(src=self.worker_id, dst=0,
                                    type=MsgType.Control_Deregister,
@@ -771,6 +1015,19 @@ class RemoteClient:
 
     def _next_req_id(self) -> int:
         return (self._session << 32) | (next(self._req_seq) & 0xFFFFFFFF)
+
+    def _confirm_watermark(self, req_id: int) -> None:
+        """Read-tier trace confirm: fire one slot-free Control_Watermark
+        at the primary stamped with a replica-served Get's req_id. The
+        reply both extends the trace across the primary and advances the
+        read cache's horizon off the authoritative append watermark.
+        Fire-and-forget: a lost frame just shortens the trace."""
+        try:
+            self._net.send(Message(
+                src=self.worker_id, dst=0, type=MsgType.Control_Watermark,
+                msg_id=next_msg_id(), req_id=req_id, trace=True))
+        except OSError:
+            pass  # diagnostics never trip recovery; the read already won
 
     def _register(self, timeout: float, resume: bool = False) -> None:
         """Register (or resume) this client's worker slot. The request is
@@ -811,13 +1068,44 @@ class RemoteClient:
         self.directory = info["tables"]
 
     # -- request path --------------------------------------------------------
+    def _read_tier_ok(self, table_id: int) -> bool:
+        """Tables whose Gets may route through the read tier: everything
+        except pipelined tables (their Gets read per-worker server state
+        — what THIS worker has seen — which replicas don't track)."""
+        ok = self._read_ok.get(table_id)
+        if ok is None:
+            spec = next((s for s in self.directory
+                         if int(s.get("table_id", -1)) == int(table_id)),
+                        None)
+            ok = spec is not None and not spec.get("is_pipelined", False)
+            self._read_ok[table_id] = ok
+        return ok
+
     def _send(self, table_id: int, msg_type: MsgType, request: Any,
               msg_id: int, completion: Optional[Completion],
+              direct: bool = False,
               deadline: Optional[float] = None) -> int:
         """Returns the req_id the request was issued under (0 for
-        fire-and-forget posts). ``deadline`` is an absolute monotonic
+        fire-and-forget posts). ``direct`` skips the read tier (its
+        primary fallback leg). ``deadline`` is an absolute monotonic
         instant (None = mint one from the request_deadline_seconds flag;
         0.0 = explicitly none)."""
+        if self._read_router is not None and not direct:
+            if (msg_type == MsgType.Request_Get and completion is not None
+                    and self._read_tier_ok(table_id)):
+                return self._read_router.submit_get(table_id, request,
+                                                    completion)
+            if (msg_type == MsgType.Request_Query and completion is not None
+                    and self._read_tier_ok(table_id)):
+                # top-k pushdown rides the same read tier: replica-first
+                # with budget admission, caching and hedging, primary
+                # fallback via direct=True
+                return self._read_router.submit_query(table_id, request,
+                                                      completion)
+            if msg_type == MsgType.Request_Add:
+                # this client just changed the table: its cached reads of
+                # it are suspect (write-through invalidation)
+                self._read_router.note_local_write(table_id)
         if completion is not None and msg_type in (MsgType.Request_Get,
                                                    MsgType.Request_Add,
                                                    MsgType.Request_Query):
@@ -891,6 +1179,17 @@ class RemoteClient:
             if msg is None:
                 self._fail_all(ConnectionError("remote client shut down"))
                 return
+            if self._read_router is not None and msg.watermark >= 0:
+                # primary replies advertise the append watermark: the
+                # cache horizon advances (and a regression — a new
+                # primary incarnation — flushes it)
+                self._read_router.observe_primary_watermark(msg.watermark)
+            if msg.type == MsgType.Control_Reply_Watermark:
+                # the read tier's trace confirm coming home: no pending
+                # completion (fire-and-forget), but the hop closes the
+                # client-primary request/reply pair
+                hop(msg.req_id, "client_watermark_reply")
+                continue
             with self._lock:
                 completion = self._pending.pop(msg.msg_id, None)
                 flight = self._inflight.pop(msg.msg_id, None)

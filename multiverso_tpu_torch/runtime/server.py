@@ -30,10 +30,13 @@ pass them untouched. The lane sort does reorder: a query, or a Get from
 the administrative context (worker id -1), drained together with queued
 Adds is answered before them, as the JAX dispatcher does by default.
 
-Not yet ported: the write-ahead log hooks (the JAX servers append a wire
-Add to the log where they apply or accept it; ``serve`` refuses a set
-``wal_dir`` flag), and the read tier (``runtime/read.py``), whose replica
-forwards reach the dispatcher as slot-free Gets.
+Write-ahead log hooks (``durable/wal.py``): when ``mv.serve`` runs with
+the ``wal_dir`` flag, ``wal`` holds the log and every wire Add is appended
+(``_wal_append``) on this thread right before it is applied, or, on the
+deterministic server, when it is accepted, so the log's order is the
+apply order. A fused micro-batch appends each of its Adds before the one
+fused apply (``_apply_fused``). The read tier's primary reads
+(``Request_Read``) reach the dispatcher as slot-free Gets.
 """
 
 from __future__ import annotations
@@ -157,6 +160,11 @@ class Server:
         # RemoteServer when it starts serving (fault/detector.py); only
         # the sync watchdog acts on it
         self.liveness = None
+        # write-ahead log (durable/wal.py), attached by mv.serve() when the
+        # wal_dir flag is set; None = no durability. Wire Adds carry their
+        # raw blobs in msg._wal and are appended via _wal_append on this
+        # dispatcher thread before the add is applied/ACKed
+        self.wal = None
         # overload survival (runtime/admission.py): the drain-time gate
         # (backlog shedding, tenant write quotas) and the lane sort; flags
         # read once here, and the defaults admit everything
@@ -166,6 +174,19 @@ class Server:
 
     def _on_batch_cap_change(self, _name: str, value) -> None:
         self._apply_batch_cap = max(0, int(value))
+
+    @dispatcher_only
+    def _wal_append(self, msg: Message) -> None:
+        """Append a wire Add's WAL entry (attached by the RemoteServer)
+        immediately before it is applied, so WAL order equals apply order
+        and recovery replay reproduces the table. The entry is popped so a
+        deferred message re-dispatched by a drain loop appends exactly
+        once. Runs on the dispatcher thread: appends serialize with
+        applies."""
+        entry = getattr(msg, "_wal", None)
+        if entry is not None and self.wal is not None:
+            msg._wal = None
+            self.wal.append(*entry)
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -350,12 +371,17 @@ class Server:
             self._dispatch_guarded(msgs[0])
             return 1
         msgs = msgs[:consumed]
+        # WAL entries per Add, in arrival order, BEFORE the fused apply (an
+        # ACKed Add is always recoverable); recovery replays the records
+        # one by one, which sums to the same state for the commutative
+        # Adds that merged at all
         for msg in msgs:
+            self._wal_append(msg)
             hop(msg.req_id, "apply_add")
         fused_c, batched_c, rows_h, _gauge = _apply_metrics()
         try:
             with monitor("SERVER_PROCESS_ADD_MSG"):
-                table.process_add(request)
+                self._apply_fused(table, request)
         except Exception as exc:
             # process_add validates before it mutates, so a raised error
             # means nothing applied: retry per message
@@ -374,6 +400,11 @@ class Server:
         for msg in msgs:
             msg.data[-1].done(None)
         return consumed
+
+    def _apply_fused(self, table, request) -> None:
+        """The fused apply: a named seam, so a crash-point drill can kill
+        the process between a batch's WAL appends and its apply."""
+        table.process_add(request)
 
     def _dispatch(self, msg: Message) -> None:
         if msg.type == MsgType.Request_Add:
@@ -395,6 +426,7 @@ class Server:
     def _process_add(self, msg: Message) -> None:
         with monitor("SERVER_PROCESS_ADD_MSG"):
             request, completion = msg.data
+            self._wal_append(msg)
             hop(msg.req_id, "apply_add")
             # process_add may return a fused-get payload (ArrayTable's
             # add+get sync path); plain adds return None
@@ -458,6 +490,12 @@ class DeterministicServer(Server):
         if not 0 <= msg.src < self.num_workers:
             super()._process_add(msg)  # administrative: apply immediately
             return
+        # WAL entry at ENQUEUE (arrival order), matching the ACK-at-enqueue
+        # contract: recovery replays in arrival order, so exactly-once
+        # holds across a crash, but the (round, worker) apply order, and
+        # with it bitwise run-to-run reproducibility, does not survive a
+        # mid-training restart
+        self._wal_append(msg)
         self._add_queues[msg.table_id][msg.src].append(msg)
         msg.data[-1].done(None)  # accepted; applies in round order below
         self._drain_adds(msg.table_id)
@@ -665,6 +703,7 @@ class SyncServer(Server):
         """Apply a released Add; its completion carries ``process_add``'s
         return value (a fused add+get reply where the table gives one)."""
         request, completion = msg.data
+        self._wal_append(msg)
         hop(msg.req_id, "apply_add")
         with monitor("SERVER_PROCESS_ADD_MSG"):
             completion.done(self._tables[msg.table_id].process_add(request))

@@ -144,6 +144,9 @@ class Zoo:
             self.remote_server = None
         if self.server is not None:
             self.server.stop()
+            if self.server.wal is not None:
+                self.server.wal.close()
+                self.server.wal = None
             self.server = None
         self._worker_tables.clear()
         self._started = False

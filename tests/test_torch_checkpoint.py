@@ -186,10 +186,21 @@ def test_driver_restore_empty_dir(tmp_path):
 
 
 def test_driver_refuses_a_wal(tmp_path):
+    """A WAL is no longer refused: a driver must share the log's root
+    (MANIFEST, generations and segments are one recovery unit), and a
+    snapshot through it commits generation 0 and rotates the log."""
+    from multiverso_tpu.durable import wal as jwal
+    from multiverso_tpu_torch.durable.wal import WalWriter
     mvt.init(device="cpu")
     table = mvt.create_table("array", 4, np.float32)
-    with pytest.raises(mvt.log.FatalError, match="WAL not ported"):
-        tck.CheckpointDriver([table], str(tmp_path), wal=object())
+    writer = WalWriter(str(tmp_path / "root"))
+    with pytest.raises(mvt.log.FatalError, match="WAL root"):
+        tck.CheckpointDriver([table], str(tmp_path / "elsewhere"), wal=writer)
+    tck.CheckpointDriver([table], str(tmp_path / "root"), wal=writer).snapshot()
+    assert jwal.read_manifest(str(tmp_path / "root")) == {
+        "generation": 0, "first_segment": 1}
+    assert (tmp_path / "root" / "gen_0" / "table_0.mvckpt").exists()
+    writer.close()
 
 
 def _train_rounds(table, deltas, lr=0.1):

@@ -15,8 +15,12 @@
 * ``PSTrainer`` on remote proxies of a port server against the JAX
   trainer on proxies of a JAX server: same tables, same host draws (rtol
   1e-4, atol 1e-6).
-* What stays out answers with an error naming the missing module; a
-  client touches no card; a reply in a device form is read to the host."""
+* Durable serving: a set ``wal_dir`` serves with a log, the read tier
+  routes a client's Gets (the port's and the JAX package's) through a
+  port replica, and the digest, replication and replica-read frames are
+  served; the cut and layout frames, whose modules are still missing,
+  answer with an error naming them. A client touches no card; a reply in
+  a device form is read to the host."""
 
 import os
 import subprocess
@@ -28,6 +32,7 @@ import pytest
 import torch
 
 import multiverso_tpu as mv
+from multiverso_tpu import io as mv_io_j
 from multiverso_tpu.models import word2vec as jw
 from multiverso_tpu.models.vocab import Dictionary as JDictionary
 from multiverso_tpu.runtime.message import Message as JMessage
@@ -279,48 +284,154 @@ def test_ps_trainer_on_remote_proxies_matches_jax():
 
 # -- what stays out, and the host boundary --------------------------------------
 
-def test_wal_dir_refused_naming_durable():
-    mvt.init(wal_dir="/nonexistent/wal", remote_workers=1)
-    with pytest.raises(log.FatalError, match="durable/"):
-        mvt.serve("127.0.0.1:0")
-    assert Zoo.instance().remote_server is None
-
-
-def test_read_endpoints_refused_naming_read_tier():
-    mvt.init(remote_workers=1)
+def test_wal_dir_refused_naming_durable(tmp_path):
+    """A set ``wal_dir`` is no longer refused: ``serve`` opens the log,
+    and a JAX-package client's Adds land in it as records the JAX
+    package's reader parses."""
+    from multiverso_tpu.durable import wal as jwal
+    root = str(tmp_path / "wal")
+    mvt.init(wal_dir=root, remote_workers=1)
+    table = mvt.create_table("array", 4)
     endpoint = mvt.serve("127.0.0.1:0")
-    with pytest.raises(NotImplementedError, match="runtime/read.py"):
-        mvt.remote_connect(endpoint, read_endpoints=[endpoint])
+    assert mvt.wal_writer() is not None and mvt.wal_writer().directory == root
+    mv.set_flag("heartbeat_seconds", 0.0)
+    client = mv.remote_connect(endpoint)
+    client.table(table.table_id).add(np.arange(4, dtype=np.float32))
+    assert mvt.watermark(endpoint)["watermark"] == 1
+    client.close()
+    mvt.stop_serving()
+    assert mvt.wal_writer() is None
+    seg = os.path.join(root, "wal", "seg00000000.t0.mvwal")
+    with open(seg, "rb") as fp:
+        records, _, clean = jwal._read_segment(fp.read(), seg)
+    assert clean and len(records) == 1
+
+
+def test_read_endpoints_refused_naming_read_tier(tmp_path):
+    """``read_endpoints=`` is served: a port client and a JAX-package
+    client routed through a JAX read replica of a port primary read the
+    primary's state from the replica (the primary's Get histogram stays
+    flat), and a dead replica falls back to the primary silently."""
+    mvt.init(wal_dir=str(tmp_path / "wal"), remote_workers=2,
+             heartbeat_seconds=0.2)
+    table = mvt.create_table("array", 4)
+    endpoint = mvt.serve("127.0.0.1:0")
+    writer = mvt.remote_connect(endpoint)
+    writer.table(table.table_id).add(np.arange(4, dtype=np.float32))
+
+    from multiverso_tpu.durable.standby import WarmStandby as JWarmStandby
+    mv.init(ps_role="server", remote_workers=2, heartbeat_seconds=0.2,
+            lease_seconds=30.0)
+    mv.create_table("array", 4)
+    replica = JWarmStandby(endpoint, endpoint, takeover=False).start()
+    assert replica.synced.wait(30)
+    read_ep = replica.serve_reads()
+    want = np.arange(4, dtype=np.float32)
+
+    def gets():
+        hist = mvt.stats(endpoint).histogram("SERVER_PROCESS_GET_MSG")
+        return hist.count if hist is not None else 0
+
+    before = gets()
+    for connect in (mvt.remote_connect, mv.remote_connect):
+        client = connect(endpoint, read_endpoints=[read_ep],
+                         read_preference="replica")
+        np.testing.assert_array_equal(client.table(table.table_id).get(),
+                                      want)
+        client.close()
+    assert gets() == before
+    dead = mvt.remote_connect(endpoint, read_endpoints=["127.0.0.1:1"],
+                              read_preference="replica")
+    np.testing.assert_array_equal(dead.table(table.table_id).get(), want)
+    assert gets() == before + 1
+    dead.close()
+    replica.stop()
+    writer.close()
+    mv.shutdown()
 
 
 def test_read_preference_refused_naming_read_tier():
-    # without the read tier a preference has nothing to route to: it is
-    # refused, never accepted and ignored
+    """``read_preference=`` is accepted now: without replicas to route to
+    the client reads from the primary, as the JAX client does; with
+    replicas an unknown preference is fatal."""
     mvt.init(remote_workers=1)
+    table = mvt.create_table("array", 4)
     endpoint = mvt.serve("127.0.0.1:0")
-    with pytest.raises(NotImplementedError, match="runtime/read.py"):
-        mvt.remote_connect(endpoint, read_preference="replica")
+    client = mvt.remote_connect(endpoint, read_preference="replica")
+    np.testing.assert_array_equal(client.table(table.table_id).get(),
+                                  np.zeros(4, np.float32))
+    client.close()
+    with pytest.raises(log.FatalError, match="read_preference"):
+        mvt.remote_connect(endpoint, read_endpoints=[endpoint],
+                           read_preference="nearest")
+
+
+def _primary_read(endpoint, table_id, request):
+    """One slot-free Request_Read (the read tier's frame, table id set)
+    answered by a primary; returns the value, checks the watermark."""
+    from multiverso_tpu_torch.runtime.read import ReplicaReader
+    reader = ReplicaReader(endpoint)
+    done = threading.Event()
+    box = {}
+
+    def cb(result, watermark, err):
+        box.update(result=result, watermark=watermark, err=err)
+        done.set()
+
+    try:
+        assert reader.read_async(table_id, request, -1, cb) is not None
+        assert done.wait(10)
+    finally:
+        reader.close()
+    assert box["err"] is None and box["watermark"] == 0
+    return box["result"]
 
 
 @pytest.mark.parametrize("request_type,reply_type,payload,module", [
     (MsgType.Control_Cut, MsgType.Control_Reply_Cut, {"cut_id": "c1"},
      "durable/cut.py"),
-    (MsgType.Control_Digest, MsgType.Control_Reply_Digest, None,
-     "obs/audit.py"),
+    (MsgType.Control_Digest, MsgType.Control_Reply_Digest, None, None),
     (MsgType.Control_Layout, MsgType.Control_Reply_Layout, None, "shard/"),
     (MsgType.Control_Replicate, MsgType.Control_Reply_Replicate, None,
-     "durable/standby.py"),
-    (MsgType.Request_Read, MsgType.Reply_Read, (None, None),
-     "runtime/read.py"),
+     None),
+    (MsgType.Request_Read, MsgType.Reply_Read, (None, None), None),
 ], ids=["cut", "digest", "layout", "replicate", "read"])
 def test_probes_of_unported_modules_refused(request_type, reply_type,
-                                            payload, module):
-    mvt.init(remote_workers=1)
-    mvt.create_table("array", 4)
+                                            payload, module, tmp_path):
+    """The cut and layout frames, whose modules are still missing, answer
+    with an error naming the module; the digest, replication and
+    replica-read frames are served, each answer the JAX package's (the
+    digest string, the transferred table bytes, the read value)."""
+    from multiverso_tpu.obs import audit as jaudit
+    mvt.init(remote_workers=1, wal_dir=str(tmp_path / "wal"))
+    table = mvt.create_table("array", 4)
+    with Zoo.instance().admin():
+        table.add(np.arange(4, dtype=np.float32))
     endpoint = mvt.serve("127.0.0.1:0")
-    with pytest.raises(RuntimeError, match=module):
-        remote.control_probe(endpoint, request_type, reply_type, timeout=10,
-                             payload=payload)
+    if module is not None:
+        with pytest.raises(RuntimeError, match=module):
+            remote.control_probe(endpoint, request_type, reply_type,
+                                 timeout=10, payload=payload)
+    else:
+        if request_type == MsgType.Request_Read:
+            got = _primary_read(endpoint, table.table_id, payload)
+        else:
+            got = remote.control_probe(endpoint, request_type, reply_type,
+                                       timeout=10, payload=payload)
+        mv.init()
+        jtable = mv.create_table("array", 4)
+        jtable.add(np.arange(4, dtype=np.float32))
+        if request_type == MsgType.Control_Digest:
+            assert got["tables"][table.table_id] == jaudit.table_digest(
+                jtable)
+        elif request_type == MsgType.Control_Replicate:
+            stream = mv_io_j.MemoryStream()
+            jtable._server_table.store(stream)
+            assert got["watermark"] == 0
+            assert bytes(got["tables"][table.table_id]) == stream.getvalue()
+        else:
+            np.testing.assert_array_equal(got, np.arange(4, dtype=np.float32))
+        mv.shutdown()
     # the server keeps serving
     assert mvt.stats(endpoint).counter("WORKER_EVICTIONS") == 0
 

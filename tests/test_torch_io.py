@@ -39,10 +39,20 @@ def test_uri_parse_matches_jax(address):
                                      "mvfs://127.0.0.1:1/x", "hdfs://n/x"])
 def test_unknown_scheme_raises_and_never_falls_back(tmp_path, address):
     """No fsspec fallback and no local file: the card's machine has no
-    fsspec, and a local path under another name would hide a typo."""
+    fsspec, and a local path under another name would hide a typo.
+    ``mvfs://`` is registered now (``io/mvfs.py``): an unreachable server
+    gives a bad stream and failing filesystem calls, never a local file."""
     cwd = os.getcwd()
     os.chdir(tmp_path)
     try:
+        if address.startswith("mvfs://"):
+            assert not tio.get_stream(address, "w").good()
+            with pytest.raises(OSError):
+                tio.fs_for(address).exists(address)
+            with pytest.raises(mvt.log.FatalError, match="bad stream"):
+                tio.TextReader(address).get_line()
+            assert os.listdir(tmp_path) == []
+            return
         with pytest.raises(mvt.log.FatalError, match="protocol"):
             tio.get_stream(address, "w")
         with pytest.raises(mvt.log.FatalError, match="no filesystem"):

@@ -19,7 +19,8 @@ REPO = Path(__file__).resolve().parent.parent
 # scripts beside it
 PORT_FILES = sorted((REPO / "multiverso_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "rows_variants.py", REPO / "asgd_probe.py",
-    REPO / "tests" / "torch_remote_child.py"]
+    REPO / "tests" / "torch_remote_child.py",
+    REPO / "tests" / "torch_durable_primary_child.py"]
 EXAMPLES = ("resnet_asgd.py", "torch_asgd.py", "asgd_param_manager.py")
 
 
@@ -66,7 +67,13 @@ def test_import_pulls_in_no_jax():
             "multiverso_tpu_torch.runtime.shm",
             "multiverso_tpu_torch.runtime.net",
             "multiverso_tpu_torch.runtime.remote",
-            "multiverso_tpu_torch.utils.backoff"} <= set(loaded)
+            "multiverso_tpu_torch.utils.backoff",
+            "multiverso_tpu_torch.durable",
+            "multiverso_tpu_torch.durable.wal",
+            "multiverso_tpu_torch.durable.standby",
+            "multiverso_tpu_torch.runtime.read",
+            "multiverso_tpu_torch.obs.audit",
+            "multiverso_tpu_torch.io.mvfs"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 

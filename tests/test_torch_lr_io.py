@@ -107,7 +107,9 @@ def test_configure_rejects_unknown_key_and_missing_input_size(tmp_path):
     empty = _write(tmp_path / "empty.conf", "output_size=2\n")
     with pytest.raises(mvt.log.FatalError):
         tio.Configure(empty)
-    with pytest.raises(mvt.log.FatalError, match="protocol"):
+    # mvfs:// is a served scheme now: an unreachable server is a bad
+    # stream, fatal at the first read, as in the JAX package
+    with pytest.raises(mvt.log.FatalError, match="bad stream"):
         tio.Configure("mvfs://127.0.0.1:1/lr.conf")
 
 
