@@ -187,7 +187,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    of the primary and the replica equal at a common watermark, then a
    corrupt row planted on the replica caught. The scatter must launch in
    this process over legs 2-3 and the gather over leg 4.
-16. The run's seconds, one JSON line listing every kernel, then the last line
+16. Sharded serving at configuration 1's width: the three tables
+   range-sharded over 2 serving processes on this card
+   (``mvt.serve_sharded(..., shards=2, durable=True, device="cuda")``),
+   reached through router clients (``ShardedClient``) that hold no table
+   state. Leg 1: 4 client processes (``--client``) of 32 rounds (a
+   1024-row Add and Get on the default matrix, an AdaGrad Add of the
+   client's own rows, an array Add, integer-valued): adds/s and Add/Get
+   p50/p99 beside phase 14's unsharded leg 1, every table bitwise equal to
+   the host mirror (AdaGrad's a numpy float32 mirror), a second client
+   bootstrapped from one endpoint (``mvt.shard_connect``), a top-k query
+   merged across the shards against the numpy oracle. Leg 2: 2 writer
+   threads add while ``mvt.reshard(group).split(0)`` and then
+   ``merge(0)`` run: zero acknowledged Adds lost (bitwise), 2 migrations
+   completed and none aborted, both clients on the new layout version;
+   seconds to cutover, the transfer's MB and seconds, the records the
+   joiners replayed. Leg 3: an acknowledged Add sent as a raw frame,
+   ``mvt.cut_fleet``, ``mvt.restore_fleet`` as a fresh group on the card:
+   every table's digest equal to the manifest's, the tables bitwise equal
+   to the mirror at the fence, the Add resent byte for byte answered from
+   the seeded dedup window and not applied; cut and restore seconds. Leg
+   4: a group with a standby and a read replica a shard; replica-preferred
+   Gets within ``read_staleness_records``; shard 1's primary SIGKILLed at a
+   round boundary, shard 0 serving alone meanwhile, the standby taking
+   over: the tables bitwise the fault-free sums, ``FAILOVERS`` 0 and 1;
+   kill to ``took_over`` and to the first acknowledged Add. Each shard
+   process writes its row-kernel launch counts when it is stopped: the
+   scatter and the gather must launch in leg 1's primaries, the scatter
+   in leg 2's joiners and leg 3's restored shards, the gather in leg 4's
+   replicas.
+17. The run's seconds, one JSON line listing every kernel (with its
+   launches in the shard processes), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
@@ -4270,6 +4300,585 @@ def durable_phase(mvt, rows, device: str, card: str, scratch: str,
                      "4_replica_reads": read_launches}
 
 
+# -- 16. sharded serving ------------------------------------------------------
+# Configuration 1's three tables range-sharded over two serving processes on
+# this card (``mvt.serve_sharded(..., device=...)``); this script and its
+# client processes are routers (``ShardedClient``) that hold no table state.
+# The row kernels launch in the shard processes: each writes its launch
+# counts when the group stops it (``ShardGroup.kernel_launches``).
+
+SHARDS = 2
+SHARD_CLIENTS = 4                 # leg 1: client processes
+SHARD_ROUNDS = 32                 # leg 1: rounds per client
+SHARD_WORKERS = SHARD_CLIENTS + 2  # + leg 2's two router clients
+SHARD_QUERY_VECS, SHARD_QUERY_K = 16, 16
+MIGRATE_PAUSE_S = 1.0             # leg 2: writing before, between, after
+SHARD_HALF = 16                   # leg 4: writer rounds before the kill
+SHARD_AFTER = 8                   # leg 4: spanning rounds after the kill
+SHARD_SOLO = 6                    # leg 4: shard-0-only Adds in the window
+SHARD_READ_GETS = 32              # leg 4: replica-preferred Gets
+SHARD_READ_BUDGET = 32            # leg 4: read_staleness_records
+GROUP_S = 240                     # a group's start limit
+# the children's runtime flags: heartbeats of 0.2 s and a 2 s lease (a
+# standby takes over about 2.5 s after its primary dies)
+SHARD_GROUP_FLAGS = dict(heartbeat_seconds=0.2, lease_seconds=2.0)
+
+
+def shard_specs(num_row: int, num_col: int) -> list:
+    """Configuration 1's tables as a shard group declares them (the order
+    of ``ps_tables``)."""
+    return [{"kind": "matrix", "num_row": num_row, "num_col": num_col},
+            {"kind": "matrix", "num_row": num_row, "num_col": num_col,
+             "updater_type": "adagrad"},
+            {"kind": "array", "size": num_row}]
+
+
+def shard_round(seed: int, idx: int, k: int, clients: int, num_row: int,
+                num_col: int, batch: int):
+    """Leg 1 client ``idx``'s round ``k``, integer-valued: matrix Add ids
+    (duplicates included) and values, Get ids, AdaGrad ids of this
+    client's rows only (row % clients == idx, so each row's steps come
+    from one worker in its order) and values, an array delta."""
+    rng = np.random.default_rng([seed, idx, k, 18])
+    return (rng.integers(0, num_row, batch).astype(np.int32),
+            int_rows(rng, (batch, num_col)),
+            rng.integers(0, num_row, batch).astype(np.int32),
+            (idx + clients * rng.integers(0, num_row // clients, batch)
+             ).astype(np.int32),
+            int_rows(rng, (batch, num_col)),
+            int_rows(rng, (num_row,)))
+
+
+def client_sharded(mvt, s: dict) -> dict:
+    """Leg 1: a router client bootstrapped from the group's endpoints;
+    ``rounds`` rounds of a 1024-row matrix Add and Get (timed), an
+    AdaGrad Add and an array Add."""
+    client = mvt.shard_connect(s["endpoints"])
+    mat, ada, arr = client.table(0), client.table(1), client.table(2)
+    opt = mvt.AddOption(worker_id=client.worker_id, learning_rate=0.1, rho=0.1)
+    wait_go()
+    add_us, get_us, ada_us, arr_us = [], [], [], []
+    start = time.time()
+    for k in range(s["rounds"]):
+        ids, vals, gids, aids, avals, arow = shard_round(
+            s["seed"], s["idx"], k, s["clients"], s["num_row"], s["num_col"],
+            s["batch"])
+        t0 = time.perf_counter()
+        mat.add(vals, row_ids=ids)
+        t1 = time.perf_counter()
+        got = mat.get(gids)
+        t2 = time.perf_counter()
+        ada.add(avals, row_ids=aids, option=opt)
+        t3 = time.perf_counter()
+        arr.add(arow)
+        t4 = time.perf_counter()
+        add_us.append((t1 - t0) * 1e6)
+        get_us.append((t2 - t1) * 1e6)
+        ada_us.append((t3 - t2) * 1e6)
+        arr_us.append((t4 - t3) * 1e6)
+        if got.shape != (s["batch"], s["num_col"]) or not np.isfinite(got).all():
+            raise AssertionError(f"bad Get reply {got.shape}")
+    end = time.time()
+    client.close()
+    return {"start": start, "end": end, "add_us": add_us, "get_us": get_us,
+            "adagrad_add_us": ada_us, "array_add_us": arr_us,
+            "layout_version": client.layout.layout_version}
+
+
+CLIENT_ROLES["sharded"] = client_sharded
+
+
+def raw_request(endpoint: str, msg, timeout: float = CLIENT_S):
+    """Send one prepared frame to ``endpoint`` over a fresh connection and
+    return the reply frame: the same bytes a client's retransmit sends."""
+    from multiverso_tpu_torch.runtime.net import TcpNet
+    net = TcpNet()
+    net.rank = -1
+    net.connect([endpoint])
+    box, got = {}, threading.Event()
+
+    def pump():
+        try:
+            while True:
+                reply = net.recv()
+                if reply is None or reply.msg_id == msg.msg_id:
+                    box["reply"] = reply
+                    got.set()
+                    return
+        except ConnectionError:
+            got.set()
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        net.send(msg)
+        if not got.wait(timeout):
+            raise TimeoutError(f"no reply from {endpoint}")
+    finally:
+        net.finalize()
+    if box.get("reply") is None:
+        raise ConnectionError(f"{endpoint} closed before replying")
+    return box["reply"]
+
+
+def group_logs(group) -> str:
+    """The last lines of every child's log of ``group`` (quoted when a leg
+    fails: the group's directory goes with the scratch directory)."""
+    out = []
+    for name in sorted(os.listdir(group.base_dir)):
+        if name.endswith(".log"):
+            with open(os.path.join(group.base_dir, name), errors="replace") as f:
+                tail = f.readlines()[-12:]
+            out.append(f"--- {name}\n" + "".join(tail))
+    return "\n".join(out)
+
+
+def shard_tables_equal(client, want: dict, what: str) -> None:
+    """Whole-table Gets through the router against host mirrors, bitwise
+    (``want``: table id -> array)."""
+    for table_id, mirror in want.items():
+        got = client.table(table_id).get()
+        if not np.array_equal(got, mirror.astype(np.float32)):
+            diff = float(np.abs(got - mirror).max())
+            raise AssertionError(f"{what}: table {table_id} != the mirror of "
+                                 f"the acknowledged Adds (max |diff| {diff})")
+
+
+def shard_leg_serving(mvt, group, pool, sz: dict, seed: int):
+    """Leg 1: ``clients`` processes route rounds through ShardedClients;
+    every table against the host mirror, bitwise; a second client from one
+    endpoint; a top-k query merged across the shards against the oracle.
+    Returns (metrics, mirrors, the two router clients)."""
+    n, rounds = sz["clients"], sz["rounds"]
+    R, C, B = sz["num_row"], sz["num_col"], sz["batch"]
+    spec = dict(role="sharded", endpoints=group.endpoints, rounds=rounds,
+                seed=seed, clients=n, num_row=R, num_col=C, batch=B,
+                flags={"heartbeat_seconds": 0})
+    results = run_jobs(pool.take(n), [dict(spec, idx=i) for i in range(n)])
+    # where a routed round's time goes, shard by shard: each dispatcher's
+    # apply and Get, the log's append, the codec (ms, slot-free stats)
+    shard_ms = []
+    for ep in group.endpoints:
+        snap = mvt.stats(ep)
+        ms = {name: snap.monitors.get(name, {}).get("average_ms")
+              for name in ("SERVER_PROCESS_ADD_MSG", "SERVER_PROCESS_GET_MSG",
+                           "WIRE_DECODE", "WIRE_ENCODE")}
+        h = snap.histogram("WAL_APPEND_SECONDS")
+        ms["WAL_APPEND_p50"] = h.p50 * 1e3 if h is not None else None
+        ms["adds"] = snap.monitors.get("SERVER_PROCESS_ADD_MSG",
+                                       {}).get("count", 0)
+        shard_ms.append(ms)
+    mirror = np.zeros((R, C), np.float64)
+    ada_m, g_sqr = np.zeros((R, C), np.float32), np.zeros((R, C), np.float32)
+    arr_m = np.zeros(R, np.float64)
+    for i in range(n):
+        for k in range(rounds):
+            ids, vals, _, aids, avals, arow = shard_round(seed, i, k, n, R, C, B)
+            np.add.at(mirror, ids, vals)
+            adagrad_mirror(ada_m, g_sqr, aids, avals, 0.1, 0.1)
+            arr_m += arow
+    del g_sqr
+    c1 = group.connect()
+    c2 = mvt.shard_connect(group.endpoints[-1])  # bootstraps from one member
+    t0 = time.perf_counter()
+    shard_tables_equal(c1, {0: mirror, 1: ada_m, 2: arr_m}, "leg 1")
+    check_s = time.perf_counter() - t0
+    probe = np.array([0, R // 2 - 1, R // 2, R - 1], np.int32)
+    if not np.array_equal(c2.table(0).get(probe), mirror[probe]):
+        raise AssertionError("leg 1: the bootstrapped client reads another "
+                             "table")
+    rng = np.random.default_rng([seed, 99])
+    vecs = rng.standard_normal((SHARD_QUERY_VECS, C)).astype(np.float32)
+    t0 = time.perf_counter()
+    got = c1.table(0).query(vecs, SHARD_QUERY_K)
+    query_ms = (time.perf_counter() - t0) * 1e3
+    check_topk(got, topk_oracle(np.arange(R), mirror.astype(np.float32), vecs,
+                                SHARD_QUERY_K, "dot"),
+               SHARD_QUERY_K, False, "leg 1 routed top-k")
+    adds = [x for r in results for x in r["add_us"]]
+    gets = [x for r in results for x in r["get_us"]]
+    wall = max(r["end"] for r in results) - min(r["start"] for r in results)
+    metrics = {"clients": n, "rounds": rounds, "matrix_adds": len(adds),
+               "adds_per_s": len(adds) / wall, "seconds": wall,
+               "add_us": percentiles(adds), "get_us": percentiles(gets),
+               "adagrad_add_us": percentiles(
+                   [x for r in results for x in r["adagrad_add_us"]]),
+               "array_add_us": percentiles(
+                   [x for r in results for x in r["array_add_us"]]),
+               "shard_server_ms": shard_ms,
+               "whole_table_check_s": check_s,
+               # the first query of each shard process starts its BLAS
+               "first_query_ms": query_ms}
+    return metrics, {0: mirror, 1: ada_m, 2: arr_m}, (c1, c2)
+
+
+def shard_leg_migration(mvt, group, clients, mirrors: dict, sz: dict,
+                        seed: int) -> dict:
+    """Leg 2: a writer thread on each router client adds integer rows to
+    the default matrix and the array while ``reshard(group).split(0)``
+    and then ``merge(0)`` run; zero acknowledged Adds lost (bitwise),
+    every migration completed and none aborted, both clients on the new
+    layout."""
+    R, C, B = sz["num_row"], sz["num_col"], sz["batch"]
+    mirror, arr_m = mirrors[0], mirrors[2]
+    lock, stop, errors, counts = threading.Lock(), threading.Event(), [], [0, 0]
+    done0 = (mvt.Dashboard.counter_value("MIGRATIONS_COMPLETED"),
+             mvt.Dashboard.counter_value("MIGRATIONS_ABORTED"))
+
+    def writer(w, client):
+        mat, arr = client.table(0), client.table(2)
+        rng = np.random.default_rng([seed, w, 2])
+        try:
+            while not stop.is_set():
+                ids = rng.integers(0, R, B).astype(np.int32)
+                vals = int_rows(rng, (B, C))
+                arow = int_rows(rng, (R,))
+                mat.add(vals, row_ids=ids)
+                with lock:
+                    np.add.at(mirror, ids, vals)
+                arr.add(arow)
+                with lock:
+                    arr_m[:] += arow
+                    counts[w] += 1
+        except BaseException as err:  # reported below, never passed over
+            errors.append(err)
+
+    threads = [threading.Thread(target=writer, args=(w, c), daemon=True)
+               for w, c in enumerate(clients)]
+    for t in threads:
+        t.start()
+    out = {}
+    try:
+        time.sleep(MIGRATE_PAUSE_S)
+        for op in ("split", "merge"):
+            before = sum(counts)
+            plan = getattr(mvt.reshard(group), op)(0)
+            joiners = []
+            for j in plan.joiners:
+                path = os.path.join(group.base_dir,
+                                    f"join-v{plan.new_version}.{j['shard']}.status")
+                with open(path) as f:
+                    st = json.load(f)
+                joiners.append({k: st.get(k) for k in (
+                    "records_applied", "transfer_bytes", "transfer_s")})
+            out[op] = {"layout_version": plan.new_version,
+                       "shards": plan.new_manifest["num_shards"],
+                       "start_to_catchup_s": plan.timings["catchup_s"],
+                       "start_to_cutover_s": plan.timings["cutover_s"],
+                       "start_to_serving_s": plan.timings["serving_s"],
+                       "total_s": plan.timings["total_s"],
+                       "transfer_mb": sum(j["transfer_bytes"]
+                                          for j in joiners) / 1e6,
+                       "transfer_s": max(j["transfer_s"] for j in joiners),
+                       "records_replayed": sum(j["records_applied"]
+                                               for j in joiners),
+                       "writer_rounds_during": sum(counts) - before}
+            time.sleep(MIGRATE_PAUSE_S)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=CLIENT_S)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError("leg 2: a writer did not stop")
+    shard_tables_equal(clients[0], mirrors, "leg 2")
+    for c in clients:
+        c.table(0).get(np.array([0], np.int32))  # a stale router re-fetches
+        if c.layout.layout_version != out["merge"]["layout_version"]:
+            raise AssertionError(f"leg 2: a client ends on layout "
+                                 f"v{c.layout.layout_version}")
+    done = (mvt.Dashboard.counter_value("MIGRATIONS_COMPLETED") - done0[0],
+            mvt.Dashboard.counter_value("MIGRATIONS_ABORTED") - done0[1])
+    if done != (2, 0):
+        raise AssertionError(f"leg 2: migrations completed/aborted {done}, "
+                             "want (2, 0)")
+    out["writer_rounds"] = sum(counts)
+    out["completed"], out["aborted"] = done
+    return out
+
+
+def shard_leg_cut(mvt, group, client, mirrors: dict, sz: dict, scratch: str,
+                  device: str, seed: int):
+    """Leg 3 (writers paused): an Add sent as a raw frame and acknowledged,
+    ``cut_fleet``, an Add after the fence; the group stops;
+    ``restore_fleet`` brings a fresh group up on ``device``: every table's
+    digest equals the manifest's, the tables equal the mirror at the fence
+    bitwise, and the pre-cut Add resent byte for byte is answered from the
+    seeded dedup window, not applied. A last routed Add makes the restored
+    shards scatter. Returns (metrics, the restored group's launches)."""
+    from multiverso_tpu_torch.runtime import wire
+    from multiverso_tpu_torch.runtime.message import (Message, MsgType,
+                                                      next_msg_id)
+    from multiverso_tpu_torch.runtime.remote import fetch_digest
+    R, C, B = sz["num_row"], sz["num_col"], sz["batch"]
+    rng = np.random.default_rng([seed, 3])
+    ids = rng.choice(R // 2, B, replace=False).astype(np.int32)  # shard 0
+    vals = int_rows(rng, (B, C))
+    pre = Message(src=-1, dst=0, type=MsgType.Request_Add, table_id=0,
+                  msg_id=next_msg_id(), req_id=(1 << 62) + seed,
+                  data=wire.encode((ids, vals, mvt.AddOption(worker_id=-1))))
+    reply = raw_request(group.endpoints[0], pre)
+    if reply.type != MsgType.Reply_Add:
+        raise AssertionError(f"leg 3: the pre-cut Add got {reply.type}")
+    np.add.at(mirrors[0], ids, vals)
+    t0 = time.perf_counter()
+    manifest = mvt.cut_fleet(group, cut_id="phase16")
+    cut_s = time.perf_counter() - t0
+    fence = {k: v.copy() for k, v in mirrors.items()}
+    client.table(0).add(np.ones((2, C), np.float32),
+                        row_ids=np.array([0, R - 1], np.int32))  # after it
+    t0 = time.perf_counter()
+    restored = mvt.restore_fleet(manifest, device=device, timeout=GROUP_S,
+                                 base_dir=os.path.join(scratch, "restored"))
+    restore_s = time.perf_counter() - t0
+    try:
+        digests_equal = 0
+        for shard in manifest["shards"]:
+            live = fetch_digest(restored.endpoints[int(shard["shard"])],
+                                timeout=CLIENT_S)
+            want = {int(k): dict(v) for k, v in shard["digests"].items()}
+            if {int(k): dict(v) for k, v in live["tables"].items()} != want:
+                raise AssertionError(f"leg 3: shard {shard['shard']}'s "
+                                     "restored digests != the manifest's")
+            digests_equal += len(want)
+        again = raw_request(restored.endpoints[0], pre)
+        if again.type != MsgType.Reply_Add:
+            raise AssertionError(f"leg 3: the retried Add got {again.type}")
+        hits = mvt.stats(restored.endpoints[0]).counter("SERVER_DEDUP_HITS")
+        if hits < 1:
+            raise AssertionError("leg 3: the retry was not a dedup hit")
+        rc = restored.connect()
+        shard_tables_equal(rc, fence, "leg 3 restored (after the retry)")
+        last = np.array([0, R - 1], np.int32)
+        rc.table(0).add(np.ones((2, C), np.float32), row_ids=last)
+        got = rc.table(0).get(last)
+        if not np.array_equal(got, fence[0][last] + 1):
+            raise AssertionError("leg 3: an Add on the restored fleet")
+        rc.close()
+    except BaseException:
+        print(group_logs(restored), flush=True)
+        raise
+    finally:
+        restored.stop()
+    return ({"cut_s": cut_s, "restore_s": restore_s,
+             "fences": [int(s["fence"]) for s in manifest["shards"]],
+             "digests_equal": digests_equal, "dedup_hits": hits},
+            restored.kernel_launches())
+
+
+def shard_leg_failover(mvt, sz: dict, scratch: str, device: str, seed: int):
+    """Leg 4: a group with a warm standby and a read replica a shard. A
+    writer adds ones to a block of rows spanning both shards (and integer
+    rows to the array) while a reader Gets the block with
+    ``read_preference`` replica; each shard's half of a replica Get is one
+    primary state within ``read_staleness_records``. Shard 1's primary is
+    SIGKILLed at a round boundary; shard-0-only Adds go on in the window;
+    the standby takes over; the final tables equal the fault-free sums
+    bitwise; ``FAILOVERS`` is 0 on shard 0 and 1 on shard 1. Returns
+    (metrics, the group's launches)."""
+    R, C, B = sz["num_row"], sz["num_col"], sz["batch"]
+    half = B // 2
+    block = np.concatenate([np.arange(half), R // 2 + np.arange(half)]
+                           ).astype(np.int32)
+    ones = np.ones((B, C), np.float32)
+    solo = block[:half]
+    group = mvt.serve_sharded(
+        shard_specs(R, C), shards=SHARDS, standby=True, replicas=1,
+        durable=True, device=device, base_dir=os.path.join(scratch, "leg4"),
+        flags=dict(SHARD_GROUP_FLAGS, remote_workers=2))
+    from multiverso_tpu_torch.config import FLAGS
+    try:
+        # this process's routers: the replica budget, and a reconnect
+        # deadline past the failover
+        mvt.set_flag("read_staleness_records", SHARD_READ_BUDGET)
+        mvt.set_flag("reconnect_deadline_seconds", 90.0)
+        writer, reader = group.connect(), group.connect(read_preference="replica")
+        mat, arr = writer.table(0), writer.table(2)
+        mirror = np.zeros((R, C), np.float64)
+        arr_m = np.zeros(R, np.float64)
+        acked = [0]
+        rng = np.random.default_rng([seed, 4])
+        stop, lat, behind, errors = threading.Event(), [], [], []
+
+        def write_round(rows, values):
+            mat.add(values, row_ids=rows)
+            np.add.at(mirror, rows, values)
+            arow = int_rows(rng, (R,))
+            arr.add(arow)
+            arr_m[:] += arow
+
+        def read():
+            rmat = reader.table(0)
+            try:
+                for _ in range(SHARD_READ_GETS):
+                    floor = acked[0]
+                    t0 = time.perf_counter()
+                    got = rmat.get(block)
+                    lat.append((time.perf_counter() - t0) * 1e6)
+                    ceiling = acked[0] + 1
+                    for part in (got[:half], got[half:]):
+                        k = float(part[0, 0])
+                        if not (np.array_equal(part, np.full_like(part, k))
+                                and floor - SHARD_READ_BUDGET <= k <= ceiling):
+                            raise AssertionError(
+                                f"leg 4: a replica Get is no primary state "
+                                f"within the budget (k {k}, acked "
+                                f"{floor}..{ceiling})")
+                        behind.append(floor - k)
+            except BaseException as err:
+                errors.append(err)
+
+        r = threading.Thread(target=read, daemon=True)
+        r.start()
+        for _ in range(SHARD_HALF):
+            write_round(block, ones)
+            acked[0] += 1
+        r.join(timeout=CLIENT_S)
+        if errors:
+            raise errors[0]
+        if r.is_alive():
+            raise TimeoutError("leg 4: the reader did not finish")
+        # the kill lands at a round boundary (the writer is one thread)
+        t_kill = time.perf_counter()
+        group.kill_shard(1)
+        solo_s = []
+        for _ in range(SHARD_SOLO):       # shard 0 alone: never blocked
+            t0 = time.perf_counter()
+            mat.add(ones[:half], row_ids=solo)
+            solo_s.append(time.perf_counter() - t0)
+            np.add.at(mirror, solo, ones[:half])
+        took = {}
+        waiter = threading.Thread(target=lambda: took.update(
+            ep=group.wait_failover(1, timeout=GROUP_S),
+            s=time.perf_counter() - t_kill), daemon=True)
+        waiter.start()
+        first_ack = None
+        for _ in range(SHARD_AFTER):
+            write_round(block, ones)
+            if first_ack is None:
+                first_ack = time.perf_counter() - t_kill
+        waiter.join(timeout=GROUP_S)
+        if took.get("ep") != group.endpoints[1]:
+            raise AssertionError(f"leg 4: took over at {took.get('ep')}")
+        if max(solo_s) >= 2.0:
+            raise AssertionError(f"leg 4: shard 0 blocked in the failover "
+                                 f"window ({max(solo_s):.2f} s)")
+        shard_tables_equal(writer, {0: mirror, 1: np.zeros((R, C)),
+                                    2: arr_m}, "leg 4 after the failover")
+        failovers = [mvt.stats(ep).counter("FAILOVERS")
+                     for ep in group.endpoints]
+        if failovers != [0, 1]:
+            raise AssertionError(f"leg 4: FAILOVERS by shard {failovers}, "
+                                 "want [0, 1]")
+        writer.close()
+        reader.close()
+        metrics = {"replica_get_us": percentiles(lat),
+                   "max_records_behind": float(max(behind)),
+                   "budget": SHARD_READ_BUDGET,
+                   "kill_to_took_over_s": took["s"],
+                   "kill_to_first_ack_s": first_ack,
+                   "shard0_solo_add_max_s": max(solo_s),
+                   "failovers_by_shard": failovers}
+    except BaseException:
+        print(group_logs(group), flush=True)
+        raise
+    finally:
+        FLAGS.reset()
+        group.stop()
+    return metrics, group.kernel_launches()
+
+
+def shard_phase(mvt, device: str, card: str, scratch: str, ps_leg: dict,
+                sizes=None) -> tuple:
+    """Phase 16: sharded serving at configuration 1's width over
+    ``SHARDS`` serving processes on ``device``. ``ps_leg`` is phase 14
+    leg 1's result (one unsharded server), reported beside leg 1's.
+    Returns (metrics, the shard processes' launch counts by leg and
+    role). ``sizes`` shrinks the legs for a CPU rehearsal."""
+    sz = dict(num_row=ROWS, num_col=COLS, batch=BATCH, rounds=SHARD_ROUNDS,
+              clients=SHARD_CLIENTS)
+    sz.update(sizes or {})
+    t_phase = time.perf_counter()
+    metrics, launches, seconds = {}, {}, {}
+    with ClientPool(sz["clients"], scratch) as pool:
+        t0 = time.perf_counter()
+        group = mvt.serve_sharded(
+            shard_specs(sz["num_row"], sz["num_col"]), shards=SHARDS,
+            durable=True, device=device, base_dir=os.path.join(scratch, "g"),
+            flags=dict(SHARD_GROUP_FLAGS, remote_workers=SHARD_WORKERS))
+        seconds["start"] = time.perf_counter() - t0
+        clients = ()
+        try:
+            t0 = time.perf_counter()
+            leg1, mirrors, clients = shard_leg_serving(mvt, group, pool, sz,
+                                                       7)
+            leg1["unsharded_phase14"] = {
+                k: ps_leg[k] for k in ("adds_per_s", "add_us", "get_us")}
+            metrics["1_routed"] = leg1
+            seconds["1"] = time.perf_counter() - t0
+            print(f"sharded serving (leg 1) on {card}: {json.dumps(leg1)}",
+                  flush=True)
+            t0 = time.perf_counter()
+            metrics["2_migration"] = shard_leg_migration(
+                mvt, group, clients, mirrors, sz, 8)
+            seconds["2"] = time.perf_counter() - t0
+            print(f"live split and merge (leg 2) on {card}: "
+                  f"{json.dumps(metrics['2_migration'])}", flush=True)
+            t0 = time.perf_counter()
+            cut, launches["3_restored"] = shard_leg_cut(
+                mvt, group, clients[0], mirrors, sz, scratch, device, 9)
+            metrics["3_cut"] = cut
+            seconds["3"] = time.perf_counter() - t0
+            print(f"consistent cut and restore (leg 3) on {card}: "
+                  f"{json.dumps(cut)}", flush=True)
+        except BaseException:
+            print(group_logs(group), flush=True)
+            raise
+        finally:
+            for c in clients:
+                c.close()
+            group.stop()
+        launches["1_2_group"] = group.kernel_launches()
+    t0 = time.perf_counter()
+    metrics["4_failover"], launches["4_failover"] = shard_leg_failover(
+        mvt, sz, scratch, device, 10)
+    seconds["4"] = time.perf_counter() - t0
+    print(f"per-shard failover with replicas (leg 4) on {card}: "
+          f"{json.dumps(metrics['4_failover'])}", flush=True)
+    metrics["leg_s"] = seconds
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    return metrics, launches
+
+
+def check_shard_launches(launches: dict) -> dict:
+    """Phase 16's kernel readout: the scatter and the gather launched in
+    every shard primary of legs 1-2 (``shard<k>``), the scatter in every
+    joiner (``join-v<version>.<k>``) and in every restored shard, the
+    gather in every replica. Returns the counts by role."""
+    out = {}
+    g = launches["1_2_group"]
+    for role in ("shard0", "shard1"):
+        for k in ("scatter_add_rows", "gather_rows"):
+            if g[role][k] <= 0:
+                raise AssertionError(f"{k}: no launch in leg 1's {role}")
+    joiners = [r for r in g if r.startswith("join-")]
+    if len(joiners) != 3:
+        raise AssertionError(f"leg 2: {len(joiners)} joiner readouts, want 3")
+    checks = [(f"leg 2 {r}", g[r], "scatter_add_rows") for r in joiners]
+    checks += [(f"leg 3 restored {r}", launches["3_restored"][r],
+                "scatter_add_rows") for r in ("shard0", "shard1")]
+    checks += [(f"leg 4 {r}", launches["4_failover"][r], "gather_rows")
+               for r in ("replica0.0", "replica1.0")]
+    for what, counts, k in checks:
+        if counts[k] <= 0:
+            raise AssertionError(f"{k}: no launch in {what}")
+    for leg, roles in launches.items():
+        for role, counts in roles.items():
+            out[f"{leg}/{role}"] = {k: counts[k] for k in (
+                "scatter_add_rows", "gather_rows")}
+    return out
+
+
 KERNELS = {
     "scatter_add_rows":"multiverso_tpu/ops/pallas_rows.py:172",
     "gather_rows": "multiverso_tpu/ops/pallas_rows.py:107",
@@ -4464,7 +5073,17 @@ def smoke(args, scratch: str) -> int:
         if durable_launches[leg][kernel] <= 0:
             raise AssertionError(f"{kernel}: no launch over durable {leg}")
 
-    # 16. the kernel line, then the verdict
+    # 16. sharded serving: shard processes on the card, routers here
+    sharded, shard_launches = shard_phase(mvt, "cuda", card, scratch,
+                                          serve["1_ps_tcp"])
+    shard_counts = check_shard_launches(shard_launches)
+    print(f"sharded serving on {card}: {json.dumps(sharded)}; row-kernel "
+          f"launches in the shard processes: {json.dumps(shard_counts)}",
+          flush=True)
+    print(f"sharded serving phase: {sharded['phase_s']:.1f} s ({card})",
+          flush=True)
+
+    # 17. the kernel line, then the verdict
     table = []
     for k, where in KERNELS.items():
         r = results[k]
@@ -4477,7 +5096,11 @@ def smoke(args, scratch: str) -> int:
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                      "launch_floor_ms": floor})
+                      "launch_floor_ms": floor,
+                      # phase 16: launches in the shard processes, by role
+                      "shard_process_launches": {
+                          role: c.get(k, 0)
+                          for role, c in shard_counts.items()}})
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": table}))

@@ -25,6 +25,13 @@ Public surface (MV_* parity, the part ported so far):
                                    (write-ahead log, restart recovery,
                                     failover and read replicas)
     audit                          (primary/replica digest comparison)
+    serve_sharded / shard_connect / reshard
+                                   (shard groups: one serving process per
+                                    shard, a routing client, live
+                                    split/merge/move)
+    cut_fleet / restore_fleet / clone_fleet
+                                   (fleet-wide consistent cuts,
+                                    point-in-time restore, clones)
     net_bind / net_connect / net_finalize / net
                                    (MV_NetBind / MV_NetConnect raw transport)
 
@@ -42,6 +49,15 @@ endpoint when it dies (or, with ``serve_reads()``, answers reads as a
 replica that clients reach through ``remote_connect(...,
 read_endpoints=..., read_preference="replica"|"hedged")``), and ``audit``
 compares the digests of a primary and its replicas.
+
+``serve_sharded`` launches a shard group: one serving process per shard,
+each holding its slice of every table on the group's ``device`` (``cuda``
+unless ``device="cpu"`` is passed), with its own WAL, lease table, dedup
+window and optional standby and read replicas; ``group.connect()`` (or
+``shard_connect(endpoint)``) gives a router client whose proxies split
+each request by owner and merge the replies. ``reshard(group)`` moves key
+ranges under traffic, and ``cut_fleet`` / ``restore_fleet`` take and
+restore a consistent cut of the whole group.
 
 ``create_table("kv", dtype, capacity=N)`` puts the KV table's keys and
 values on the device (``DeviceKVServer``); the tiered kinds keep a hot set
@@ -86,15 +102,22 @@ def init(argv: Optional[Sequence[str]] = None, sync: Optional[bool] = None,
         set_flag(key, value)
     _configure_profiling()  # first: the dispatcher thread is traced too
     try:
-        return Zoo.instance().start(argv)
+        started = Zoo.instance().start(argv)
     except BaseException:
         _stop_profiling(export=False)
         raise
+    if float(get_flag("timeseries_interval_seconds")) > 0:
+        # the windowed views the hot-range detector reads
+        from multiverso_tpu_torch.obs.timeseries import TIMESERIES
+        TIMESERIES.start()
+    return started
 
 
 def shutdown(finalize_net: bool = True) -> None:
     """Stop the runtime and forget its named programs: a registered program
     closes over the tables it was built for."""
+    from multiverso_tpu_torch.obs.timeseries import TIMESERIES
+    TIMESERIES.stop()
     Zoo.instance().stop(finalize_net)
     clear_programs()
     _stop_profiling()
@@ -412,6 +435,109 @@ def audit(fleet, interval: Optional[float] = None,
     if auditor.interval > 0:
         auditor.start()
     return auditor
+
+
+# -- sharded serving tier (shard/) -------------------------------------------
+# Tables range/hash-sharded across serving processes, clients splitting
+# requests and merging partial replies. A ShardGroup launches one serving
+# process per shard (own WAL, leases, optional warm standby and replicas) on
+# the group's device; clients route through a ShardedClient.
+
+def serve_sharded(tables: Sequence[dict], shards: Optional[int] = None,
+                  device: Optional[str] = None, **kwargs: Any):
+    """Launch a shard group serving ``tables`` (declarative specs, e.g.
+    ``[{"kind": "matrix", "num_row": 1 << 20, "num_col": 64}]``) across
+    ``shards`` serving processes (default: the ``shards`` flag), each
+    holding its tables on ``device`` (default: the ``device`` flag, so
+    ``cuda`` unless the caller asks for the CPU). Each shard owns its
+    slice of every table, its own lease table and dedup window, its own
+    WAL dir (``durable=True``), optionally a warm standby
+    (``standby=True``) and ``replicas`` read replicas (default: the
+    ``replicas`` flag). Returns the started
+    :class:`~multiverso_tpu_torch.shard.group.ShardGroup` — use
+    ``.connect()`` for a routing client, ``.endpoints``/``.layout`` for
+    bootstrap info, ``.stop()`` to tear down. Does NOT need ``init`` in
+    the calling process (the shard children own their runtimes)."""
+    from multiverso_tpu_torch.shard.group import ShardGroup
+    return ShardGroup(tables, shards=shards, device=device,
+                      **kwargs).start()
+
+
+def reshard(group):
+    """An elastic-membership coordinator for a live, durable shard group:
+    ``reshard(group).split(k)`` / ``.merge(k)`` / ``.move(k)`` migrate
+    key ranges under traffic with zero acknowledged-Add loss — fresh
+    joiner processes (on the group's device) catch up over the donors'
+    WAL streams, donors fence at a watermark cutover, and clients
+    re-route in flight (:mod:`multiverso_tpu_torch.shard.reshard`)."""
+    from multiverso_tpu_torch.shard.reshard import MigrationCoordinator
+    return MigrationCoordinator(group)
+
+
+def shard_connect(endpoints: Any = None, timeout: float = 30.0):
+    """Connect to an existing shard group (of either package): fetch the
+    layout manifest from the first reachable member (``Control_Layout``
+    RPC), then build a :class:`~multiverso_tpu_torch.shard.router.
+    ShardedClient` whose ``.table(table_id)`` proxies split Get/Add
+    across the shards and merge the partial replies bit-identically to a
+    single-server run. ``endpoints``: a host:port string, a list of them,
+    or None to read the ``shard_endpoints`` flag (validated fail-fast).
+    A client needs no ``init`` and no card."""
+    from multiverso_tpu_torch.shard.partition import parse_shard_endpoints
+    from multiverso_tpu_torch.shard.router import ShardedClient, fetch_layout
+    if endpoints is None:
+        endpoints = get_flag("shard_endpoints")
+    candidates = parse_shard_endpoints(endpoints)
+    errors = []
+    for endpoint in candidates:
+        try:
+            layout = fetch_layout(endpoint, timeout=timeout)
+            return ShardedClient(layout, timeout=timeout)
+        except (OSError, TimeoutError, ConnectionError, RuntimeError) as exc:
+            errors.append(f"{endpoint}: {exc!r}")
+    log.fatal("shard_connect: no member answered the layout RPC (%s)",
+              "; ".join(errors))
+
+
+def cut_fleet(fleet, cut_id: Optional[str] = None,
+              timeout: Optional[float] = None) -> Dict[str, Any]:
+    """Take a watermark-consistent cut of a serving fleet
+    (durable/cut.py): fan the slot-free ``Control_Cut`` marker over
+    every shard primary — each drains its dispatcher, snapshots at its
+    ``WalWriter.seq`` fence, replies fence + digests — and commit the
+    atomic fleet manifest under ``<base_dir>/cuts/``. ``fleet`` is a
+    ShardGroup or its base_dir. Returns the committed manifest; raises
+    (committing NOTHING) if any member failed mid-cut."""
+    from multiverso_tpu_torch.durable.cut import cut_fleet as _cut
+    return _cut(fleet, cut_id=cut_id, timeout=timeout)
+
+
+def restore_fleet(manifest=None, base_dir: Optional[str] = None,
+                  replicas: int = 0, standby: bool = False,
+                  timeout: float = 240.0, device: Optional[str] = None):
+    """Point-in-time recovery (durable/cut.py): bring up a fresh
+    ShardGroup on ``device`` (default: the ``device`` flag) restored to a
+    committed cut — every shard at the SAME manifest's fence, dedup
+    windows seeded from the cut's acked-Add ledger. ``manifest`` is a cut
+    manifest dict, a fleet base_dir (its LATEST cut), or a manifest path;
+    a cut of either package's group restores. Returns the started
+    ShardGroup."""
+    from multiverso_tpu_torch.durable.cut import restore_fleet as _restore
+    return _restore(manifest, base_dir=base_dir, replicas=replicas,
+                    standby=standby, timeout=timeout, device=device)
+
+
+def clone_fleet(source, base_dir: Optional[str] = None, replicas: int = 0,
+                timeout: float = 240.0, device: Optional[str] = None):
+    """Blue/green bring-up (durable/cut.py): bootstrap a fresh ShardGroup
+    on ``device`` (default: the ``device`` flag) from a LIVE fleet — each
+    clone shard absorbs one quiesced ``Control_Replicate`` transfer from
+    its source primary, then serves under its own WAL lineage. ``source``
+    is a ShardGroup, its base_dir, or a cut manifest (endpoints name the
+    donors). Returns the started clone group."""
+    from multiverso_tpu_torch.durable.cut import clone_fleet as _clone
+    return _clone(source, base_dir=base_dir, replicas=replicas,
+                  timeout=timeout, device=device)
 
 
 # -- raw net mode (MV_NetBind / MV_NetConnect / MV_NetFinalize) --------------

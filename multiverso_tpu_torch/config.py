@@ -513,3 +513,53 @@ define_double("breaker_reset_seconds", 5.0,
               "how long a tripped breaker stays open before admitting "
               "one half-open probe; the probe's outcome closes or "
               "re-opens it")
+
+# Time-series recorder (obs/timeseries.py): the hot-range detector reads
+# its windows.
+define_double("timeseries_interval_seconds", 1.0,
+              "seconds between time-series recorder samples of every "
+              "registered counter/gauge/histogram; 0 disables the "
+              "sampler thread (manual sample_now() still works)")
+define_int("timeseries_samples", 600,
+           "ring-buffer length per metric in the time-series recorder "
+           "(retention = this many * timeseries_interval_seconds)")
+
+# Sharded serving tier (multiverso_tpu_torch/shard/): table partitioning,
+# client-side router, shard groups with per-shard failover
+# (port of the JAX package's flags: same names, defaults and help).
+define_int("shards", 0,
+           "shard count for sharded serving (mv.serve_sharded spawns one "
+           "serving process per shard); 0 = unsharded single server")
+define_string("shard_partitioner", "auto",
+              "partitioner for key tables in a shard group: auto|range|"
+              "hash (array/matrix rows are always range-partitioned); "
+              "unknown values fail fast with the accepted set")
+define_string("shard_endpoints", "",
+              "comma-separated host:port members of an existing shard "
+              "group — mv.shard_connect() bootstraps the layout manifest "
+              "from the first reachable member; entries are validated "
+              "fail-fast")
+# Elastic membership / live key-range migration (shard/reshard.py:
+# split/merge/move under traffic; docs/sharding.md §live migration).
+define_bool("auto_reshard", False,
+            "let the hot-range detector EXECUTE the splits it proposes "
+            "(MigrationCoordinator.maybe_autosplit); off, detection only "
+            "proposes (RESHARD_PROPOSALS counter + log line)")
+define_double("reshard_hot_ratio", 3.0,
+              "hot-range detector threshold: a shard proposes for a split "
+              "when its request rate exceeds this multiple of the median "
+              "shard's rate over the observation window")
+define_double("reshard_min_qps", 50.0,
+              "hot-range detector floor: shards below this request rate "
+              "never propose a split regardless of skew (splitting an "
+              "idle group is churn, not balance)")
+define_double("reshard_cold_qps", 5.0,
+              "cold-range detector ceiling: two ADJACENT shards both "
+              "below this request rate propose a merge (the inverse of "
+              "the split path — an over-split group wastes processes)")
+# Read replicas a shard group runs per shard (shard/group.py).
+define_int("replicas", 0,
+           "serving read replicas per shard in a shard group (each tails "
+           "the primary's WAL and answers slot-free watermark-stamped "
+           "Gets); 0 = none. Implies durability (replication tails the "
+           "WAL)")

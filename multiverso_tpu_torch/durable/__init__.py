@@ -16,10 +16,13 @@ process. This package closes that:
   death by lease expiry, and binds the service endpoint so client
   reconnect logic resumes against it transparently; ``serve_reads()``
   makes it a read replica.
-
-Not yet ported: ``durable/migrate.py`` (``RangeTailer``,
-``translate_add``) and ``durable/cut.py``, which serve the shard group
-(``shard/``) and arrive with it.
+* :mod:`~multiverso_tpu_torch.durable.migrate` — range-filtered WAL
+  tailing for live key-range migration (shard/reshard.py): a joining
+  shard absorbs a quiesced raw-value transfer of exactly the migrating
+  ranges, then tails the donor's record stream — translating donor ids to
+  its own — up to the cutover watermark.
+* :mod:`~multiverso_tpu_torch.durable.cut` — watermark-consistent fleet
+  cuts, point-in-time restore and blue/green clones of a shard group.
 """
 
 import os as _os
@@ -27,6 +30,8 @@ import os as _os
 from multiverso_tpu_torch.durable.wal import (  # noqa: F401
     RecoveryResult, WalRecord, WalWriter, read_manifest, recover)
 from multiverso_tpu_torch.durable.standby import WarmStandby  # noqa: F401
+from multiverso_tpu_torch.durable.migrate import (  # noqa: F401
+    RangeTailer, translate_add)
 
 
 def shard_wal_dir(root: str, shard: int) -> str:

@@ -42,15 +42,22 @@ record, and ``Control_Digest`` answers the fleet auditor. ``Request_Read``
 is the read tier's slot-free primary Get (``runtime/read.py`` routes a
 client's Gets through replicas and falls back here).
 
-Not yet ported (``ROADMAP.md`` queue 1), and refused with an error that
-names the missing module: consistent cuts (``durable/cut.py``), the shard
-group's layout and live migration (``shard/``).
+Sharded serving (``shard/``): a shard-group member serves the group's
+layout manifest over ``Control_Layout``; a ``Control_Migrate`` subscriber
+(a live-migration joiner) receives a quiesced transfer of its id ranges
+and then every record; ``Control_Migrate_Cutover`` installs a new layout
+and fences this member, which from then on refuses requests stamped
+with an older layout version (``Reply_WrongShard``, checked after the
+dedup window); ``Control_Cut`` snapshots every table at the WAL fence
+(``durable/cut.py``).
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import random
+import signal
 import threading
 import time
 from collections import OrderedDict
@@ -92,6 +99,20 @@ config.define_bool("wire_compression", True,
 # dedup-window sentinel: the request arrived and is being processed; a
 # replay seen now is swallowed (the original's completion will reply)
 _INFLIGHT = object()
+
+
+class WrongShardError(Exception):
+    """A Reply_WrongShard came back: the request was stamped with a layout
+    version older than the serving shard's installed layout, so it was
+    REFUSED before applying. Carries the server's layout version and the
+    new manifest so the shard router re-fetches and re-routes without an
+    extra Control_Layout round trip."""
+
+    def __init__(self, layout_version: int, manifest) -> None:
+        super().__init__(f"stale shard layout (server at version "
+                         f"{layout_version})")
+        self.layout_version = int(layout_version)
+        self.manifest = manifest
 
 
 def _host_reply(payload: Any) -> Any:
@@ -204,24 +225,6 @@ class _QueryCompletion(_ReadCompletion):
         self._reply(MsgType.Reply_Query, result)
 
 
-# control frames whose serving side stands on a module this package does
-# not have yet: each is answered with a Reply_Error naming that module
-_NOT_PORTED = {
-    MsgType.Control_Cut: (
-        "consistent cuts need durable/cut.py, which multiverso_tpu_torch "
-        "does not have yet"),
-    MsgType.Control_Layout: (
-        "no shard layout: shard groups (shard/) are not in "
-        "multiverso_tpu_torch yet"),
-    MsgType.Control_Migrate: (
-        "live migration needs shard/reshard.py, which multiverso_tpu_torch "
-        "does not have yet"),
-    MsgType.Control_Migrate_Cutover: (
-        "live migration needs shard/reshard.py, which multiverso_tpu_torch "
-        "does not have yet"),
-}
-
-
 class RemoteServer:
     """Serves this process's tables to client processes over TCP (or the
     shared-memory ring)."""
@@ -255,6 +258,18 @@ class RemoteServer:
         self.liveness = LivenessDetector(
             float(config.get_flag("lease_seconds")))
         self.endpoint: Optional[str] = None
+        # shard-group membership (shard/group.py): the layout manifest
+        # this member serves over Control_Layout — either the dict
+        # itself, or a path loaded lazily (the group publishes the file
+        # only after every member has bound its endpoint)
+        self.layout: Optional[Dict[str, Any]] = None
+        self.layout_path: str = ""
+        # live-migration layout fencing (shard/reshard.py): requests
+        # stamped with a layout version below this are refused with
+        # Reply_WrongShard instead of applied — the router re-fetches and
+        # re-routes. 0 = no fencing (unsharded servers, pre-migration
+        # groups); bumped only by a Control_Migrate_Cutover install.
+        self.layout_version: int = 0
 
     def append_watermark(self) -> int:
         """The primary's WAL append sequence (-1 when serving without
@@ -418,6 +433,78 @@ class RemoteServer:
                  "seed(s) transferred)", len(tables), len(dedup))
         self._ensure_standby_heartbeats()
 
+    # -- live key-range migration (shard/reshard.py) -------------------------
+    def _subscribe_migrate(self, msg: Message) -> None:
+        """Handle Control_Migrate: a joining shard asks for a quiesced
+        raw-value transfer of specific shard-local id ranges, then tails
+        this donor's WAL record stream like a standby (the subscriber
+        filters to its ranges; the donor fan-out stays one code path).
+        Snapshot + subscription happen in ONE dispatcher-serialized block
+        — no Add falls between the extracted values and the first tailed
+        record. ``extract_range`` reads each range to a host copy inside
+        the block, and the frame is encoded from that copy, so a later
+        Add cannot show through."""
+        wal = self._zoo.server.wal
+        if wal is None:
+            self._refuse(msg, "live migration needs durability: start "
+                              "the donor with the wal_dir flag")
+            return
+        ranges = wire.decode(msg.data).get("tables", {})
+
+        def transfer():
+            tables = {}
+            for table_id, (lo, hi) in ranges.items():
+                table = self._zoo.server._tables[int(table_id)]
+                tables[int(table_id)] = table.extract_range(int(lo),
+                                                            int(hi))
+            with self._standby_lock:
+                if msg._conn not in self._standbys:
+                    self._standbys.append(msg._conn)
+            return tables, int(wal.seq)
+
+        tables, watermark = self._zoo.server.run_serialized(
+            transfer, timeout=None)
+        self._net.send_via(msg._conn, Message(
+            src=0, dst=msg.src, type=MsgType.Control_Reply_Migrate,
+            msg_id=msg.msg_id, req_id=msg.req_id, watermark=watermark,
+            data=wire.encode({"tables": tables, "watermark": watermark})))
+        log.info("remote: migration subscriber attached (%d range(s), "
+                 "watermark %d)", len(tables), watermark)
+        self._ensure_standby_heartbeats()
+
+    def _migrate_cutover(self, msg: Message) -> None:
+        """Handle Control_Migrate_Cutover: install the attached manifest
+        (the layout-version fence goes up) and answer with the WAL seq
+        after a dispatcher drain. This handler runs on the pump thread —
+        the ONLY thread that enqueues wire requests — so once the fence is
+        set here, no further stale-stamped Add can enter the dispatcher;
+        the run_serialized barrier then drains everything already queued,
+        so every acknowledged Add on this donor has seq <= the returned
+        watermark and the record stream is silent above it. Also the
+        rollback vehicle: aborting re-installs the old topology under a
+        HIGHER version through the same RPC."""
+        payload = wire.decode(msg.data)
+        manifest = payload["manifest"]
+        version = int(manifest.get("layout_version", 1))
+        if version > self.layout_version:
+            self.layout = manifest
+            self.layout_version = version
+        server = self._zoo.server
+        if server is not None and server.wal is not None:
+            watermark = server.run_serialized(lambda: int(server.wal.seq),
+                                              timeout=None)
+        else:
+            watermark = -1
+        count("MIGRATION_CUTOVERS")
+        hop(msg.req_id, "migrate_cutover")
+        self._net.send_via(msg._conn, Message(
+            src=0, dst=msg.src, type=MsgType.Control_Reply_Migrate_Cutover,
+            msg_id=msg.msg_id, req_id=msg.req_id, watermark=watermark,
+            data=wire.encode({"watermark": watermark,
+                              "layout_version": self.layout_version})))
+        log.info("remote: cutover to layout version %d at watermark %d",
+                 version, watermark)
+
     def _ensure_standby_heartbeats(self) -> None:
         """Primary→standby heartbeats: the standby's lease on the primary
         must stay renewed while the WAL idles, or a quiet training lull
@@ -456,8 +543,8 @@ class RemoteServer:
                 log.error("remote: standby heartbeat tick failed: %r", exc)
 
     def _refuse(self, msg: Message, text: str) -> None:
-        """Answer a control frame this port cannot serve with a
-        Reply_Error naming what is missing (never a silent drop)."""
+        """Answer a control frame this server cannot serve with a
+        Reply_Error saying why (never a silent drop)."""
         self._net.send_via(msg._conn, Message(
             src=0, dst=msg.src, type=MsgType.Reply_Error,
             msg_id=msg.msg_id, req_id=msg.req_id, data=wire.encode(text)))
@@ -489,8 +576,8 @@ class RemoteServer:
         if msg.type == MsgType.Control_Stats:
             self._reply_stats(msg)
             return
-        if msg.type in _NOT_PORTED:
-            self._refuse(msg, _NOT_PORTED[msg.type])
+        if msg.type == MsgType.Control_Layout:
+            self._reply_layout(msg)
             return
         if msg.type == MsgType.Control_Watermark:
             self._reply_watermark(msg)
@@ -503,6 +590,9 @@ class RemoteServer:
             return
         if msg.type == MsgType.Control_Digest:
             self._reply_digest(msg)
+            return
+        if msg.type == MsgType.Control_Cut:
+            self._handle_cut(msg)
             return
         if msg.type == MsgType.Request_Read:
             self._serve_read(msg, compress)
@@ -520,6 +610,12 @@ class RemoteServer:
         if msg.type == MsgType.Control_Replicate:
             self._subscribe_standby(msg)
             return
+        if msg.type == MsgType.Control_Migrate:
+            self._subscribe_migrate(msg)
+            return
+        if msg.type == MsgType.Control_Migrate_Cutover:
+            self._migrate_cutover(msg)
+            return
         if msg.type == MsgType.Server_Finish_Train:
             self._zoo.server.send(Message(
                 src=msg.src, dst=-1, type=msg.type, table_id=msg.table_id,
@@ -529,6 +625,27 @@ class RemoteServer:
             log.error("remote server: unhandled frame type %s", msg.type)
             return
         if self._replayed(msg):
+            return
+        if (self.layout_version > 0 and msg.req_id
+                and 0 <= msg.watermark < self.layout_version):
+            # Stale-layout fence, strictly AFTER the dedup check: a
+            # replayed-but-already-applied Add re-serves its cached ACK
+            # above and never lands here, so a WrongShard refusal
+            # GUARANTEES the request did not apply on this shard — the
+            # router may safely re-issue it under a fresh req_id. Pop the
+            # _INFLIGHT entry _replayed just inserted: this req_id's
+            # story on this shard is over.
+            with self._dedup_lock:
+                if self._dedup.get(msg.req_id) is _INFLIGHT:
+                    del self._dedup[msg.req_id]
+            count("MIGRATION_WRONG_SHARD_REPLIES")
+            hop(msg.req_id, "wrong_shard_refused")
+            self._net.send_via(msg._conn, Message(
+                src=0, dst=msg.src, type=MsgType.Reply_WrongShard,
+                table_id=msg.table_id, msg_id=msg.msg_id, req_id=msg.req_id,
+                trace=msg.trace,
+                data=wire.encode({"layout_version": self.layout_version,
+                                  "manifest": self.layout})))
             return
         request = wire.decode(msg.data)
         completion = _NetCompletion(self, msg._conn, msg, compress)
@@ -641,8 +758,8 @@ class RemoteServer:
         this primary's EXACT append watermark — digest and watermark are
         read in one dispatcher-serialized block, so no Add can land
         between them (the digest reads each table to host bytes there).
-        Slot-free like the stats probe. This package serves no shard
-        layouts, so the layout version is an unsharded primary's 0."""
+        Slot-free like the stats probe. The layout version is this
+        member's fence (0 for an unsharded primary)."""
         from multiverso_tpu_torch.obs.audit import digest_payload
         server = self._zoo.server
         t0 = time.perf_counter()
@@ -652,7 +769,7 @@ class RemoteServer:
             return digest_payload(
                 server._tables, role="primary", endpoint=self.endpoint or "",
                 watermark=int(wal.seq) if wal is not None else -1,
-                layout_version=0)
+                layout_version=self.layout_version)
 
         payload = server.run_serialized(run, timeout=None)
         observe("AUDIT_DIGEST_SECONDS", time.perf_counter() - t0)
@@ -661,6 +778,35 @@ class RemoteServer:
             msg_id=msg.msg_id, req_id=msg.req_id,
             watermark=int(payload.get("watermark", -1)),
             data=wire.encode(payload)))
+
+    def _handle_cut(self, msg: Message) -> None:
+        """Control_Cut: snapshot every table at this shard's WAL fence
+        (durable/cut.py) and reply the fence + digests. Runs on the pump
+        thread — the only thread that enqueues wire requests — so the
+        dispatcher-serialized capture block drains everything already
+        accepted and fences out everything after, the same quiesce shape
+        as the Control_Replicate transfer. A durability-less server
+        refuses: without a WAL there is no fence to cut at."""
+        from multiverso_tpu_torch.durable import cut as cut_mod
+        if self._zoo.server.wal is None:
+            self._refuse(msg, "consistent cuts need durability: start "
+                              "the server with the wal_dir flag")
+            return
+        request = wire.decode(msg.data) if msg.data else {}
+        request = request if isinstance(request, dict) else {}
+        reply = cut_mod.capture_cut(self, str(request.get("cut_id", "adhoc")))
+        if request.get("kill") == "shard":
+            # chaos drill (MV_CUT_KILL=shard): die AFTER the local
+            # snapshot but BEFORE replying — the coordinator sees a
+            # timeout, the cut fails, and the previous manifest must
+            # remain the fleet's recovery point
+            log.error("cut: MV_CUT_KILL=shard — dying before the cut "
+                      "reply (drill)")
+            os.kill(os.getpid(), signal.SIGKILL)
+        self._net.send_via(msg._conn, Message(
+            src=0, dst=msg.src, type=MsgType.Control_Reply_Cut,
+            msg_id=msg.msg_id, req_id=msg.req_id,
+            watermark=int(reply["fence"]), data=wire.encode(reply)))
 
     @slot_free
     def _reply_stats(self, msg: Message) -> None:
@@ -673,6 +819,29 @@ class RemoteServer:
             src=0, dst=msg.src, type=MsgType.Control_Reply_Stats,
             msg_id=msg.msg_id, req_id=msg.req_id,
             data=wire.encode(Dashboard.snapshot())))
+
+    @slot_free
+    def _reply_layout(self, msg: Message) -> None:
+        """Control_Layout: ship the shard group's layout manifest. Like
+        the stats probe: no worker slot, no lease, no dedup entry — a
+        bootstrapping client must be able to ask ANY member."""
+        layout = self.layout
+        if layout is None and self.layout_path:
+            try:
+                import json
+                with open(self.layout_path, "r", encoding="utf-8") as f:
+                    layout = self.layout = json.load(f)
+            except (OSError, ValueError):
+                layout = None  # manifest not published yet — reply error
+        if layout is None:
+            self._refuse(msg, "no shard layout: this server is not a "
+                              "shard-group member (or the group's "
+                              "manifest is not published yet)")
+            return
+        self._net.send_via(msg._conn, Message(
+            src=0, dst=msg.src, type=MsgType.Control_Reply_Layout,
+            msg_id=msg.msg_id, req_id=msg.req_id,
+            data=wire.encode(layout)))
 
     def _deregister_client(self, msg: Message) -> None:
         # Graceful close. Slot recycling is async-server only: the sync
@@ -779,7 +948,14 @@ class RemoteServer:
         for table_id, table in list(self._zoo.server._tables.items()):
             spec = table.remote_spec()
             if spec is not None:
-                directory.append({"table_id": table_id, **spec})
+                entry = {"table_id": table_id, **spec}
+                offset = int(getattr(table, "row_offset", 0) or 0)
+                if offset:
+                    # range-sharded member: this table's rows/keys sit at
+                    # [offset, offset + local size) of the global table —
+                    # introspection for routers and operators
+                    entry["row_offset"] = offset
+                directory.append(entry)
         self._register_reply(msg, {"worker_id": worker_id,
                                    "num_workers": self._zoo.num_workers,
                                    "tables": directory})
@@ -870,6 +1046,20 @@ def fetch_digest(endpoint: str, timeout: float = 30.0) -> Dict[str, Any]:
     return control_probe(endpoint, MsgType.Control_Digest,
                          MsgType.Control_Reply_Digest,
                          timeout=timeout, what="digest")
+
+
+def fetch_cut(endpoint: str, cut_id: str, timeout: float = 120.0,
+              kill: str = "") -> Dict[str, Any]:
+    """One-shot consistent-cut marker: ask a shard primary to snapshot
+    every table at its WAL fence into ``cut_<cut_id>/`` and reply
+    ``{"cut_id", "fence", "segment", "cut_dir", "digests", "tables",
+    "dedup_count"}``. ``kill="shard"`` rides the payload for the
+    MV_CUT_KILL chaos drill (the shard dies after its snapshot, before
+    replying — the coordinator must fail the whole cut)."""
+    return control_probe(endpoint, MsgType.Control_Cut,
+                         MsgType.Control_Reply_Cut, timeout=timeout,
+                         what="cut", payload={"cut_id": str(cut_id),
+                                              "kill": kill or ""})
 
 
 # -- client side -------------------------------------------------------------
@@ -1083,13 +1273,15 @@ class RemoteClient:
 
     def _send(self, table_id: int, msg_type: MsgType, request: Any,
               msg_id: int, completion: Optional[Completion],
-              direct: bool = False,
+              direct: bool = False, watermark: int = -1,
               deadline: Optional[float] = None) -> int:
         """Returns the req_id the request was issued under (0 for
-        fire-and-forget posts). ``direct`` skips the read tier (its
-        primary fallback leg). ``deadline`` is an absolute monotonic
-        instant (None = mint one from the request_deadline_seconds flag;
-        0.0 = explicitly none)."""
+        fire-and-forget posts) so callers a layer up — the shard router —
+        can append their own hops to the same trace. ``direct`` skips the
+        read tier (its primary fallback leg). ``watermark`` is the layout
+        version a shard router stamps (-1: a plain client, never fenced).
+        ``deadline`` is an absolute monotonic instant (None = mint one
+        from the request_deadline_seconds flag; 0.0 = explicitly none)."""
         if self._read_router is not None and not direct:
             if (msg_type == MsgType.Request_Get and completion is not None
                     and self._read_tier_ok(table_id)):
@@ -1139,6 +1331,11 @@ class RemoteClient:
                       req_id=self._next_req_id() if completion is not None
                       else 0,
                       trace=self._trace and completion is not None,
+                      # a shard router stamps its layout version here so a
+                      # mid-migration donor refuses (Reply_WrongShard)
+                      # instead of applying a possibly-misrouted request;
+                      # plain clients leave -1 (never fenced)
+                      watermark=watermark,
                       data=data)
         with self._lock:
             if completion is not None:
@@ -1222,6 +1419,11 @@ class RemoteClient:
                     else:
                         completion.fail(RuntimeError(
                             f"server-side failure: {text}"))
+                elif msg.type == MsgType.Reply_WrongShard:
+                    refusal = wire.decode(msg.data)
+                    completion.fail(WrongShardError(
+                        refusal.get("layout_version", 0),
+                        refusal.get("manifest")))
                 elif msg.type == MsgType.Reply_Add:
                     completion.done(None)
                 else:

@@ -24,7 +24,9 @@ step wrote into them (a deferred apply under the deterministic or BSP
 server, a pipelined sync in flight). Every reply is a fresh tensor set,
 distinct from the table and from each other.
 
-Not yet ported: live migration.
+Live migration (``extract_range``/``absorb_range``): the transfer reads
+the logical elements to host memory, and the recipient writes them into
+its existing tensor in place (the JAX table rebinds a fresh array).
 """
 
 from __future__ import annotations
@@ -257,6 +259,25 @@ class ArrayServer(ServerTable):
         self.data[: self.size].copy_(torch.from_numpy(
             arr.reshape(-1).astype(self.dtype, copy=False)))
         load_states(self.states, read_state_dict(stream), (self.size,))
+
+    # -- live migration (shard/reshard.py) ---------------------------------
+    def extract_range(self, lo: int, hi: int) -> np.ndarray:
+        """Raw values of shard-local elements [lo, hi), read to a host
+        copy — the migration transfer unit (updater state excluded: the
+        recipient's starts at zero, the reference's documented reset)."""
+        return self._host_read(self.data[int(lo):int(hi)])
+
+    def absorb_range(self, start: int, values) -> None:
+        """Write raw values at [start, start+len) in place, bypassing
+        updaters — the recipient side of extract_range."""
+        values = np.asarray(values, dtype=self.dtype).reshape(-1)
+        if not values.flags.writeable:  # a decoded wire buffer
+            values = values.copy()
+        n = values.size
+        if start < 0 or start + n > self.size:
+            log.fatal("absorb_range [%d, %d) outside [0, %d)",
+                      start, start + n, self.size)
+        self.data[start:start + n].copy_(torch.from_numpy(values))
 
 
 def load_states(states: Dict[str, torch.Tensor], loaded: Dict[str, np.ndarray],

@@ -171,6 +171,11 @@ class ServerTable:
     def __init__(self) -> None:
         self.table_id: int = -1
         self.device: torch.device = Zoo.instance().device
+        # one shard of a range-partitioned table (shard/partition.py): the
+        # member serves SHARD-LOCAL ids in [0, local size) — the router
+        # translates — and advertises the offset in its remote directory.
+        # 0 = unsharded (or the first shard).
+        self.row_offset: int = 0
         # (scalars tuple, worker) -> (worker index, device scalars),
         # LRU-bounded: a repeated AddOption envelope skips the host->device
         # upload; a churning one cannot pin more than _OPT_CACHE_MAX
@@ -240,3 +245,19 @@ class ServerTable:
 
     def load(self, stream) -> None:
         raise NotImplementedError
+
+    # -- live migration hooks (shard/reshard.py) ----------------------------
+    # Raw-value slice transfer for key-range migration: extract hands the
+    # donor's CURRENT values of a shard-local id range to host memory (no
+    # updater involvement, like store()); absorb writes values at a range
+    # on the recipient, bypassing updaters — a migrated value is state,
+    # not a gradient. Only range-partitionable kinds implement these; the
+    # migration planner refuses the rest before ever calling. Both run in
+    # the dispatcher-serialised block (Server.run_serialized).
+    def extract_range(self, lo: int, hi: int) -> Any:
+        log.fatal("live migration is unsupported for %s (no extract_range)",
+                  type(self).__name__)
+
+    def absorb_range(self, start: int, values: Any) -> None:
+        log.fatal("live migration is unsupported for %s (no absorb_range)",
+                  type(self).__name__)

@@ -25,8 +25,10 @@ existing tensors, so a registered program or a trainer's transaction that
 closed over them sees the restored values.
 
 ``remote_spec`` gives remote clients the logical shape; the wire proxy is
-``runtime/remote.py``'s ``_RemoteMatrixWorker``. Not yet ported: live
-migration.
+``runtime/remote.py``'s ``_RemoteMatrixWorker``. Live migration
+(``extract_range``/``absorb_range``) moves logical rows only: the
+transfer is read to host memory, and the recipient writes it into its
+existing tensor in place (the JAX table rebinds a fresh array).
 """
 
 from __future__ import annotations
@@ -316,7 +318,9 @@ class MatrixServer(ServerTable):
         loudly instead of misdirecting rows."""
         if row_ids.size and (int(row_ids.min()) < 0
                              or int(row_ids.max()) >= self.num_row):
-            log.fatal("Matrix.%s: row id out of range [0, %d)", op, self.num_row)
+            log.fatal("Matrix.%s: row id out of range [0, %d) (offset %d "
+                      "of the global table) — sharded routers must send "
+                      "shard-local ids", op, self.num_row, self.row_offset)
 
     def _resolve_named(self, request):
         """Rehydrate a named transaction descriptor into the live form:
@@ -445,6 +449,32 @@ class MatrixServer(ServerTable):
             # table must serve every row fresh once
             with self._std_lock:
                 self._up_to_date[:, :] = False
+
+    # -- live migration (shard/reshard.py) ---------------------------------
+    def extract_range(self, lo: int, hi: int) -> np.ndarray:
+        """Raw values of shard-local rows [lo, hi), logical columns only,
+        read to a host copy — the migration transfer unit. The sentinel
+        row and the column pads never travel. Updater state is excluded:
+        the recipient's starts at zero (the reference's documented reset,
+        like a v1 checkpoint restore)."""
+        return self._host_read(self.data[int(lo):int(hi), : self.num_col])
+
+    def absorb_range(self, start: int, values) -> None:
+        """Write raw rows at [start, start+len) into the existing tensor,
+        in place — the recipient side of extract_range. Bypasses updaters:
+        migrated values are state, not gradients."""
+        values = np.asarray(values, dtype=self.dtype).reshape(-1, self.num_col)
+        if not values.flags.writeable:  # a decoded wire buffer
+            values = values.copy()
+        n = values.shape[0]
+        if start < 0 or start + n > self.num_row:
+            log.fatal("absorb_range [%d, %d) outside [0, %d)",
+                      start, start + n, self.num_row)
+        self.data[start:start + n, : self.num_col].copy_(
+            torch.from_numpy(values))
+        if self.is_sparse:
+            with self._std_lock:
+                self._up_to_date[:, start:start + n] = False
 
 
 class MatrixWorker(WorkerTable):

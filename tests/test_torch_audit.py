@@ -1,6 +1,5 @@
 """The port's fleet integrity plane (``multiverso_tpu_torch/obs/audit.py``):
-the cases of ``tests/test_audit.py`` on the port, but the fenced-donor
-probe (it needs ``shard/``'s layout fence) — order-independent digests of
+the cases of ``tests/test_audit.py`` on the port — order-independent digests of
 every table kind, the tiered<->plain interchange folding cold rows without
 promotion, the FleetAuditor's verdicts against an injected probe — plus
 digest parity with the JAX package: the same state digests to the same 32
@@ -441,3 +440,35 @@ def test_live_primary_and_replica_audit_then_planted_divergence(tmp_path):
         if child.poll() is None:
             child.kill()
             child.wait(timeout=30)
+
+
+def test_probes_degrade_against_fenced_donor_and_dead_member():
+    """A fenced retired donor (layout_version bumped after a migration's
+    cutover: it refuses data traffic with Reply_WrongShard) still answers
+    every control probe the port serves — stats, watermark, traces,
+    profile, digest (reporting its fence); a dead endpoint's probe raises
+    rather than hangs. The port has no ``stats_all`` or ``attribution``
+    yet, so the dead member is probed alone."""
+    from multiverso_tpu_torch.runtime.message import MsgType
+    from multiverso_tpu_torch.runtime.remote import (control_probe,
+                                                     fetch_digest)
+    mv.init(remote_workers=1)
+    mv.create_table("array", 8, np.float32)
+    endpoint = mv.serve("127.0.0.1:0")
+    Zoo.instance().remote_server.layout_version = 5
+    assert fetch_digest(endpoint, timeout=10.0)["layout_version"] == 5
+    from multiverso_tpu.runtime.remote import fetch_digest as jfetch_digest
+    assert jfetch_digest(endpoint, timeout=10.0)["layout_version"] == 5
+    assert control_probe(endpoint, MsgType.Control_Profile,
+                         MsgType.Control_Reply_Profile,
+                         timeout=10.0)["role"] == "primary"
+    assert control_probe(endpoint, MsgType.Control_Traces,
+                         MsgType.Control_Reply_Traces,
+                         timeout=10.0)["role"] == "primary"
+    assert mv.watermark(endpoint)["role"] == "primary"
+    assert mv.stats(endpoint).counter("WORKER_EVICTIONS") == 0
+    dead = "127.0.0.1:1"  # nothing listens on the reserved port
+    with pytest.raises((OSError, RuntimeError)):
+        mv.stats(dead, timeout=1.0)
+    with pytest.raises((OSError, RuntimeError)):
+        fetch_digest(dead, timeout=1.0)

@@ -15,12 +15,13 @@
 * ``PSTrainer`` on remote proxies of a port server against the JAX
   trainer on proxies of a JAX server: same tables, same host draws (rtol
   1e-4, atol 1e-6).
-* Durable serving: a set ``wal_dir`` serves with a log, the read tier
-  routes a client's Gets (the port's and the JAX package's) through a
-  port replica, and the digest, replication and replica-read frames are
-  served; the cut and layout frames, whose modules are still missing,
-  answer with an error naming them. A client touches no card; a reply in
-  a device form is read to the host."""
+* Durable and sharded serving: a set ``wal_dir`` serves with a log, the
+  read tier routes a client's Gets (the port's and the JAX package's)
+  through a port replica, and the cut, digest, replication and
+  replica-read frames are served, each answer the JAX package's; the
+  layout frame is refused by a server outside a shard group in the JAX
+  package's words. A client touches no card; a reply in a device form is
+  read to the host."""
 
 import os
 import subprocess
@@ -387,31 +388,43 @@ def _primary_read(endpoint, table_id, request):
     return box["result"]
 
 
-@pytest.mark.parametrize("request_type,reply_type,payload,module", [
-    (MsgType.Control_Cut, MsgType.Control_Reply_Cut, {"cut_id": "c1"},
-     "durable/cut.py"),
-    (MsgType.Control_Digest, MsgType.Control_Reply_Digest, None, None),
-    (MsgType.Control_Layout, MsgType.Control_Reply_Layout, None, "shard/"),
-    (MsgType.Control_Replicate, MsgType.Control_Reply_Replicate, None,
-     None),
-    (MsgType.Request_Read, MsgType.Reply_Read, (None, None), None),
+@pytest.mark.parametrize("request_type,reply_type,payload", [
+    (MsgType.Control_Cut, MsgType.Control_Reply_Cut, {"cut_id": "c1"}),
+    (MsgType.Control_Digest, MsgType.Control_Reply_Digest, None),
+    (MsgType.Control_Layout, MsgType.Control_Reply_Layout, None),
+    (MsgType.Control_Replicate, MsgType.Control_Reply_Replicate, None),
+    (MsgType.Request_Read, MsgType.Reply_Read, (None, None)),
 ], ids=["cut", "digest", "layout", "replicate", "read"])
 def test_probes_of_unported_modules_refused(request_type, reply_type,
-                                            payload, module, tmp_path):
-    """The cut and layout frames, whose modules are still missing, answer
-    with an error naming the module; the digest, replication and
-    replica-read frames are served, each answer the JAX package's (the
-    digest string, the transferred table bytes, the read value)."""
+                                            payload, tmp_path):
+    """(The name dates from before ``durable/cut.py`` and ``shard/`` were
+    ported; the cut and layout probes are now served.) Each probe of a
+    durable port primary gets the JAX package's
+    answer: the cut's fence and per-table digests (``durable/cut.py``,
+    against ``table_digest`` of the same JAX table), the digest string,
+    the transferred table bytes, the read value; and the layout probe,
+    sent to a server outside any shard group, the JAX server's refusal,
+    word for word."""
     from multiverso_tpu.obs import audit as jaudit
     mvt.init(remote_workers=1, wal_dir=str(tmp_path / "wal"))
     table = mvt.create_table("array", 4)
     with Zoo.instance().admin():
         table.add(np.arange(4, dtype=np.float32))
     endpoint = mvt.serve("127.0.0.1:0")
-    if module is not None:
-        with pytest.raises(RuntimeError, match=module):
+    if request_type == MsgType.Control_Layout:
+        with pytest.raises(RuntimeError) as port_err:
             remote.control_probe(endpoint, request_type, reply_type,
                                  timeout=10, payload=payload)
+        mv.init()
+        mv.create_table("array", 4)
+        jendpoint = mv.serve("127.0.0.1:0")
+        with pytest.raises(RuntimeError) as jax_err:
+            remote.control_probe(jendpoint, request_type, reply_type,
+                                 timeout=10, payload=payload)
+        mv.shutdown()
+        assert "not a shard-group member" in str(port_err.value)
+        assert (str(port_err.value).replace(endpoint, "EP")
+                == str(jax_err.value).replace(jendpoint, "EP"))
     else:
         if request_type == MsgType.Request_Read:
             got = _primary_read(endpoint, table.table_id, payload)
@@ -421,7 +434,13 @@ def test_probes_of_unported_modules_refused(request_type, reply_type,
         mv.init()
         jtable = mv.create_table("array", 4)
         jtable.add(np.arange(4, dtype=np.float32))
-        if request_type == MsgType.Control_Digest:
+        if request_type == MsgType.Control_Cut:
+            assert got["cut_id"] == "c1" and got["fence"] == 0
+            assert got["tables"] == [table.table_id]
+            assert got["digests"][table.table_id] == jaudit.table_digest(
+                jtable)
+            assert os.path.isfile(os.path.join(got["cut_dir"], "CUT.json"))
+        elif request_type == MsgType.Control_Digest:
             assert got["tables"][table.table_id] == jaudit.table_digest(
                 jtable)
         elif request_type == MsgType.Control_Replicate:

@@ -73,7 +73,16 @@ def test_import_pulls_in_no_jax():
             "multiverso_tpu_torch.durable.standby",
             "multiverso_tpu_torch.runtime.read",
             "multiverso_tpu_torch.obs.audit",
-            "multiverso_tpu_torch.io.mvfs"} <= set(loaded)
+            "multiverso_tpu_torch.io.mvfs",
+            "multiverso_tpu_torch.obs.timeseries",
+            "multiverso_tpu_torch.durable.cut",
+            "multiverso_tpu_torch.durable.migrate",
+            "multiverso_tpu_torch.shard",
+            "multiverso_tpu_torch.shard.partition",
+            "multiverso_tpu_torch.shard.router",
+            "multiverso_tpu_torch.shard.group",
+            "multiverso_tpu_torch.shard.reshard",
+            "multiverso_tpu_torch.shard._child"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -136,3 +145,17 @@ def test_init_needs_the_card_unless_cpu_is_asked_for():
     finally:
         mvt.shutdown()
         TORCH_FLAGS.reset()
+
+
+def test_shard_modules_are_checked():
+    """Every module of the sharded serving slice is among the files whose
+    imports are checked (and the group's child runs the port's module)."""
+    checked = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for name in ("shard/__init__.py", "shard/partition.py", "shard/router.py",
+                 "shard/group.py", "shard/reshard.py", "shard/_child.py",
+                 "durable/cut.py", "durable/migrate.py", "obs/timeseries.py"):
+        assert f"multiverso_tpu_torch/{name}" in checked
+    for name in ("shard/group.py", "shard/reshard.py"):
+        source = (REPO / "multiverso_tpu_torch" / name).read_text()
+        assert '"multiverso_tpu_torch.shard._child"' in source
+        assert "JAX_PLATFORMS" not in source

@@ -1,7 +1,8 @@
 """The port's read-replica serving tier (``multiverso_tpu_torch/durable/
 standby.py``'s read server, ``runtime/read.py``'s client tier): the cases
-of ``tests/test_replica.py`` on the port, but the sharded replica fleet
-(it needs ``shard/``), against ``tests/torch_durable_primary_child.py``.
+of ``tests/test_replica.py`` on the port, against
+``tests/torch_durable_primary_child.py``, and the sharded replica fleet
+on a port shard group (``shard/``).
 
 * bounded staleness: no reply is staler than the budget relative to the
   primary's WAL append watermark, with a held-back tail and with
@@ -669,3 +670,68 @@ def test_jax_standby_tails_port_primary(tmp_path):
     jstandby.stop()
     jmv.shutdown()
     client.close()
+
+
+def test_sharded_replica_fleet_and_kill_drill(tmp_path):
+    """A 2-shard CPU group with one serving replica a shard: routed reads
+    come off the replicas, the replicas' stats show it (slot-free), and
+    SIGKILLing a replica under read traffic surfaces ZERO errors — reads
+    fall back to the primary. The replica processes' stats are read one
+    by one (the port has no ``stats_all`` yet)."""
+    rows, cols = 64, 4
+    from multiverso_tpu_torch.shard.group import ShardGroup
+    group = ShardGroup(
+        [{"kind": "matrix", "num_row": rows, "num_col": cols,
+          "dtype": "<f4"}],
+        shards=2, replicas=1, base_dir=str(tmp_path), device="cpu",
+        flags={"remote_workers": 4, "heartbeat_seconds": 0.2})
+    try:
+        group.start(timeout=120)
+        mv.set_flag("read_staleness_records", 1 << 30)
+        mv.set_flag("read_timeout_seconds", 1.0)
+        assert all(len(f) == 1 for f in group.replica_endpoints)
+        client = group.connect(read_preference="replica")
+        table = client.table(0)
+        values = np.arange(rows * cols, dtype=np.float32).reshape(rows, cols)
+        table.add(values, row_ids=np.arange(rows, dtype=np.int32))
+        deadline = time.monotonic() + 60
+        for fleet in group.replica_endpoints:
+            while time.monotonic() < deadline:
+                probe = mv.watermark(fleet[0])
+                if probe["watermark"] >= 1 and probe["lag"] == 0:
+                    break
+                time.sleep(0.1)
+        ids = np.arange(rows, dtype=np.int32)
+        np.testing.assert_array_equal(table.get(row_ids=ids), values)
+        assert Dashboard.counter_value("READS_VIA_REPLICA") >= 2
+        replica_stats = [mv.stats(f[0]) for f in group.replica_endpoints]
+        assert sum(s.counter("READS_SERVED_REPLICA")
+                   for s in replica_stats) >= 2
+        assert any(s.gauge("REPLICA_WATERMARK") >= 1 for s in replica_stats)
+
+        errors, reads = [], [0]
+        stop = threading.Event()
+
+        def pound():
+            while not stop.is_set():
+                try:
+                    np.testing.assert_array_equal(table.get(row_ids=ids),
+                                                  values)
+                    reads[0] += 1
+                except Exception as exc:  # noqa: BLE001
+                    errors.append(exc)
+
+        thread = threading.Thread(target=pound)
+        thread.start()
+        time.sleep(0.5)
+        group.kill_replica(0, 0)
+        time.sleep(2.0)
+        stop.set()
+        thread.join(timeout=30)
+        assert not thread.is_alive()
+        assert not errors, f"reads surfaced errors across the kill: {errors}"
+        assert reads[0] > 0
+        assert Dashboard.counter_value("READ_PRIMARY_FALLBACKS") >= 1
+        client.close()
+    finally:
+        group.stop()

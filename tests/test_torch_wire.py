@@ -176,13 +176,20 @@ def _populate(dash, bounds):
                              bounds=bounds(lowest=1.0)).observe(1024)
 
 
-def test_prometheus_render_and_snapshot_match_jax():
+def test_prometheus_render_and_snapshot_match_jax(monkeypatch):
     """The same metrics render the same Prometheus exposition (labels,
     tenant and shard families, cumulative buckets) and snapshot in both
     dashboards."""
     from multiverso_tpu import dashboard as jdash
     from multiverso_tpu.obs.metrics import log_bounds as jlog_bounds
     from multiverso_tpu_torch import dashboard as tdash
+    # both registries empty for this test: a family renders in the order
+    # it was registered, and what earlier tests of the same process
+    # registered (a dispatcher registers APPLY_BATCH_ROWS when it starts,
+    # a router its ROUTER_SHARD<k>_SECONDS) is not this test's subject
+    for dash in (JDashboard, Dashboard):
+        for registry in ("_monitors", "_counters", "_histograms", "_gauges"):
+            monkeypatch.setattr(dash, registry, {})
     JDashboard.reset()
     _populate(jdash, jlog_bounds)
     _populate(tdash, tdash.log_bounds)
