@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    rows padded to whole 16-byte vectors) at every id bucket 64..65536 with
    sentinel pads, in float32, float64, float16, int32 and int64 (the
    gather with repeated ids); at rows of 1, 3, 13, 32 and 15,552 vectors
-   (the last wider than a block's shared memory); with out-of-range ids
+   (the last wider than a block's shared memory); on the LDA path's
+   102,661 x 1,000 fp32 word-topic table (250 vectors a row) at every
+   bucket 64..65536, the gather's grid walking from the pulls' 32,768
+   slots on; with out-of-range ids
    (the gather writes zeros, the scatter skips them); and both scatters on
    special values (signed zeros, subnormals, infinities) in each float
    dtype and in both of the simple scatter's paths. Then the card's launch
@@ -119,7 +122,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (a sync a batch; both at lr 0.01, momentum 0.9), 4 workers (lr 0.02,
    momentum 0.5), 4 workers pipelined; images/s, s/epoch, worker-side sync
    p50/p99, training-set accuracy, the PS overhead of row 2 over row 1,
-   the card's idle share over a traced epoch of row 3. Checks: the port
+   the card's idle share over a traced epoch of row 3 (``profile``: the
+   union of the device spans traced from every thread). Checks: the port
    in float32 (TF32 off, depth 8) on the card against the CPU, logits and
    parameters after 3 steps and a sync; one ResNet-32 step in bf16 and in
    float32 on the card against the CPU's float32 step; every row's table
@@ -197,7 +201,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    p50/p99 beside phase 14's unsharded leg 1, every table bitwise equal to
    the host mirror (AdaGrad's a numpy float32 mirror), a second client
    bootstrapped from one endpoint (``mvt.shard_connect``), a top-k query
-   merged across the shards against the numpy oracle. Leg 2: 2 writer
+   merged across the shards against the numpy oracle, then the fleet
+   calls on the group (``mvt.stats_all``, ``traces``, ``attribution``,
+   ``chargeback``, ``top``): each non-empty, the stitched spans in causal
+   order, the chargeback shares summing to 1. Leg 2: 2 writer
    threads add while ``mvt.reshard(group).split(0)`` and then
    ``merge(0)`` run: zero acknowledged Adds lost (bitwise), 2 migrations
    completed and none aborted, both clients on the new layout version;
@@ -216,9 +223,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    scatter and the gather must launch in leg 1's primaries, the scatter
    in leg 2's joiners and leg 3's restored shards, the gather in leg 4's
    replicas.
-17. The run's seconds, one JSON line listing every kernel (with its
-   launches in the shard processes), then the last line
-   ``{"ok": true, "device": {...}}``.
+17. LDA at the UCI Bag-of-Words NYTimes corpus's shape (vocabulary
+   102,660, 332 tokens a document, 1,000 topics, alpha 50/K, beta 0.01)
+   on a planted-topic synthetic corpus of 1,024 documents:
+   ``mvt.init(local_workers=4)`` on the card with ``metrics_path`` set, 4
+   worker threads each running a ``PSGibbsLDA`` over 256 documents
+   against one shared 102,660 x 1,000 word-topic matrix table and one
+   topic-total array table, 10 sweeps: the table bitwise equal to the
+   counts implied by every worker's assignments, the totals to its
+   column sums, the grand total to the 339,968 live tokens; sweep ms
+   p50/p99 (pull, sweep function, push), tokens/s over the workers, the
+   sweep function's CUDA-event ms; both row kernels launched; one pull's
+   reply bitwise equal to ``gather_rows_plain`` and one sweep's delta
+   push to ``scatter_add_rows_plain`` on the same table and padded ids;
+   the card's busy share over one more profiled round (``profile``, as
+   phase 13's idle share); the phase's peak device memory; a metrics
+   snapshot holding ``SERVER_PROCESS_ADD_MSG``. Then the planted-topic
+   case of ``tests/test_lda.py`` on the card under the port's lockcheck
+   (purity > 0.9, no lock-order cycle), the ``lda_topics`` example twin
+   (purity > 0.8), and that case on the card against the CPU from the
+   same numpy draws for 3 sweeps: equal assignments except at counted
+   near-ties.
+18. The run's seconds, one JSON line listing every kernel (with its
+   launches in the shard processes and over phase 17), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
 """
@@ -435,6 +463,37 @@ def check_special_values(rows, mesh, dev, rng) -> int:
     return checks
 
 
+def lda_shape_checks(rows, dev, rng, err: dict):
+    """Both row kernels at the LDA path's shape, bit for bit against their
+    plain versions: the 102,661-row word-topic table (the sentinel row
+    last) of 1,000 fp32 columns (250 16-byte vectors a row), every bucket
+    from 64 slots past the pulls' 32,768, so the gather's grid walks (more
+    slots than its capped grid takes in one pass) on rows wider than a
+    block's 32 lanes. Folds the errors into ``err``; returns (cases, the
+    buckets at which the gather walks)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LDA_SEED)
+    table = torch.randn((LDA_VOCAB + 1, LDA_TOPICS), generator=gen, device=dev)
+    vecs = LDA_TOPICS * 4 // 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases, walks = 0, []
+    for B in KERNEL_BUCKETS:
+        e = check_rows(rows, table, np.float32, rng, B, LDA_VOCAB,
+                       f"LDA table, {vecs} vectors a row")
+        err["scatter_add_rows"] = max(err["scatter_add_rows"], e[0])
+        err["gather_rows"] = max(err["gather_rows"], e[1])
+        g = rows.launch_geometry(B, vecs, sms, *rows.GATHER_BLOCK)
+        if g.grid * g.block_y < B:
+            walks.append(B)
+        cases += 1
+    if LDA_PULL_BUCKET not in walks:
+        raise AssertionError(f"the gather's grid does not walk at the LDA "
+                             f"pull's {LDA_PULL_BUCKET}-slot bucket")
+    del table
+    torch.cuda.empty_cache()
+    return cases, walks
+
+
 def kernel_phase(rows, mesh, dev):
     """Compare the gather and the scatter with their plain versions; time
     both and the library call at the PS shape. Returns (per-kernel
@@ -468,10 +527,13 @@ def kernel_phase(rows, mesh, dev):
                        f"{vecs} vectors a row")
             widths += 1
         del table
+    lda_cases, walks = lda_shape_checks(rows, dev, rng, err)
     print(f"kernel phase: {checked} (dtype, bucket) cases on the 1M x 50 table "
           f"(dtypes {[np.dtype(t).name for t in KERNEL_DTYPES]}, buckets "
-          f"{KERNEL_BUCKETS[0]}..{KERNEL_BUCKETS[-1]}) and {widths} (row width, "
-          f"bucket) cases (widths {ROW_WIDTHS} vectors), kernels bitwise equal "
+          f"{KERNEL_BUCKETS[0]}..{KERNEL_BUCKETS[-1]}), {widths} (row width, "
+          f"bucket) cases (widths {ROW_WIDTHS} vectors) and {lda_cases} bucket "
+          f"cases on the {LDA_VOCAB} x {LDA_TOPICS} LDA table (the gather's "
+          f"grid walks at buckets {walks}), kernels bitwise equal "
           f"to their plain versions (max |err| {err}); out-of-range ids: gather "
           f"zeros, scatter skips; {special} special-value checks of both "
           f"scatters bitwise equal to index_add_", flush=True)
@@ -1181,27 +1243,42 @@ def word2vec_phase(mvt, rows, device: str, card: str, w2v=None,
 
 
 def profile(fn, top: int = 6):
-    """Host wall time of ``fn`` under torch.profiler, the device time of
-    the kernels it ran on any thread (their sum: busy time, overlaps
-    aside) and the kernels that took most of it. On the CPU there is no
-    device time."""
+    """Host wall time of ``fn`` under torch.profiler, the card's busy time
+    over it (the union of the device spans, kernels and copies, that the
+    trace records from every thread) and the kernels that took most of
+    it. On the CPU there is no device time."""
+    from torch._C._profiler import _ExperimentalConfig
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=acts, experimental_config=_ExperimentalConfig(
+                profile_all_threads=True)) as prof:
         t0 = time.perf_counter()
         fn()
+        if cuda:
+            torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0.0) or 0.0
 
-    # kernels only: an operator launched from this thread carries its
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    busy_ms = busy_us / 1e3
+    # kernels only: an operator launched from a traced thread carries its
     # kernels' time as well
     avgs = sorted((e for e in prof.key_averages()
                    if str(getattr(e, "device_type", "")).endswith("CUDA")),
                   key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in avgs) / 1e3
     return {"wall_ms": wall_ms,
             "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
             "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3
@@ -4477,6 +4554,9 @@ def shard_leg_serving(mvt, group, pool, sz: dict, seed: int):
             adagrad_mirror(ada_m, g_sqr, aids, avals, 0.1, 0.1)
             arr_m += arow
     del g_sqr
+    # the routers' requests carry the trace flag: the fleet calls after
+    # this leg stitch their spans with the shards'
+    mvt.set_flag("trace_requests", True)
     c1 = group.connect()
     c2 = mvt.shard_connect(group.endpoints[-1])  # bootstraps from one member
     t0 = time.perf_counter()
@@ -4509,6 +4589,51 @@ def shard_leg_serving(mvt, group, pool, sz: dict, seed: int):
                # the first query of each shard process starts its BLAS
                "first_query_ms": query_ms}
     return metrics, {0: mirror, 1: ada_m, 2: arr_m}, (c1, c2)
+
+
+def shard_leg_fleet_obs(mvt, group) -> dict:
+    """Leg 1's fleet readout: ``mvt.stats_all``, ``traces``,
+    ``attribution``, ``chargeback`` and ``top`` on the group's endpoints,
+    each non-empty; the stitched hops causally ordered; the chargeback
+    shares summing to 1. Returns each call's ms and sizes."""
+    out = {}
+    t0 = time.perf_counter()
+    merged = mvt.stats_all(group)
+    out["stats_all_ms"] = (time.perf_counter() - t0) * 1e3
+    adds = merged.monitors.get("SERVER_PROCESS_ADD_MSG", {}).get("count", 0)
+    if not adds or merged.unreachable or len(merged.shards) != SHARDS:
+        raise AssertionError(f"leg 1 stats_all: {adds} Adds, unreachable "
+                             f"{merged.unreachable}")
+    out["stats_all_adds"] = adds
+    t0 = time.perf_counter()
+    spans = mvt.traces(group)
+    out["traces_ms"] = (time.perf_counter() - t0) * 1e3
+    multi = [sp for sp in spans if len(sp.processes) >= 2]
+    if not multi or not all(sp.monotonic() for sp in spans):
+        raise AssertionError(f"leg 1 traces: {len(spans)} spans, "
+                             f"{len(multi)} across processes, not all in "
+                             f"causal order")
+    out["spans"], out["spans_across_processes"] = len(spans), len(multi)
+    t0 = time.perf_counter()
+    report = mvt.attribution(group)
+    out["attribution_ms"] = (time.perf_counter() - t0) * 1e3
+    if not report.rows or report.dominant is None:
+        raise AssertionError("leg 1 attribution: no segments")
+    out["dominant_segment"] = report.dominant["segment"]
+    out["dominant_share"] = report.dominant["share"]
+    t0 = time.perf_counter()
+    bill = mvt.chargeback(group)
+    out["chargeback_ms"] = (time.perf_counter() - t0) * 1e3
+    total = sum(r["share"] for r in bill.rows)
+    if not bill.rows or abs(total - 1.0) > 1e-9:
+        raise AssertionError(f"leg 1 chargeback: shares sum to {total}")
+    out["chargeback_tenants"] = [r["tenant"] for r in bill.rows]
+    t0 = time.perf_counter()
+    view = mvt.top(group)
+    out["top_ms"] = (time.perf_counter() - t0) * 1e3
+    if not all(ep in view for ep in group.endpoints):
+        raise AssertionError(f"leg 1 top: endpoints missing from\n{view}")
+    return out
 
 
 def shard_leg_migration(mvt, group, clients, mirrors: dict, sz: dict,
@@ -4814,6 +4939,7 @@ def shard_phase(mvt, device: str, card: str, scratch: str, ps_leg: dict,
                                                        7)
             leg1["unsharded_phase14"] = {
                 k: ps_leg[k] for k in ("adds_per_s", "add_us", "get_us")}
+            leg1["fleet_obs"] = shard_leg_fleet_obs(mvt, group)
             metrics["1_routed"] = leg1
             seconds["1"] = time.perf_counter() - t0
             print(f"sharded serving (leg 1) on {card}: {json.dumps(leg1)}",
@@ -4877,6 +5003,378 @@ def check_shard_launches(launches: dict) -> dict:
             out[f"{leg}/{role}"] = {k: counts[k] for k in (
                 "scatter_add_rows", "gather_rows")}
     return out
+
+
+# -- 17. LDA -------------------------------------------------------------------
+# PSGibbsLDA (models/lda.py) at the UCI Bag-of-Words NYTimes corpus's shape:
+# vocabulary 102,660, 332 tokens a document (its mean: 99.5 M tokens over
+# 299,752 documents), 1,000 topics, alpha = 50/K and beta = 0.01 (Griffiths
+# & Steyvers, PNAS 2004). The corpus is planted-topic synthetic at that
+# shape (NYTimes is not in the repo): 4 worker threads of 256 documents
+# each share one 102,660 x 1,000 word-topic matrix table and one topic
+# total array table on the card.
+
+LDA_VOCAB, LDA_TOPICS, LDA_DOC_LEN = 102_660, 1_000, 332
+LDA_WORKERS, LDA_DOCS_PER_WORKER, LDA_SWEEPS = 4, 256, 10
+LDA_ALPHA, LDA_BETA = 50.0 / LDA_TOPICS, 0.01
+LDA_SEED = 11
+# the near-tie rule of the card against the CPU: the two best scores of a
+# token within this of each other (float64) may swap between two logs
+LDA_TIE = 1e-5
+# tests/test_lda.py's planted-topic case, and examples/lda_topics.py's run
+LDA_PLANTED = dict(vocab=60, topics=3, docs=60, doc_len=40, seed=1,
+                   sweeps=20, bar=0.9)
+LDA_EXAMPLE_BAR = 0.8
+LDA_PARITY_SWEEPS = 3
+# a worker's pull: about 25,500 distinct words of its 256 documents
+# (run 53), padded to this bucket
+LDA_PULL_BUCKET = 32_768
+
+
+def lda_draw_hook(seed: int):
+    """Uniform draws in [1e-10, 1) from numpy, the same on every device."""
+    def hook(i, shape):
+        u = np.random.default_rng([seed, i]).random(shape, dtype=np.float32)
+        return np.maximum(u * np.float32(1 - 1e-10) + np.float32(1e-10),
+                          np.float32(1e-10))
+    return hook
+
+
+def lda_mirror(workers, vocab: int, topics: int) -> np.ndarray:
+    """The word-topic counts implied by every worker's assignments."""
+    implied = np.zeros((vocab, topics), np.float32)
+    for w in workers:
+        live = w.tokens >= 0
+        np.add.at(implied, (w.tokens[live], w.z[live]), 1.0)
+    return implied
+
+
+def lda_check_counts(workers, what: str) -> int:
+    """The word-topic table bitwise equal to the mirror of every worker's
+    assignments, the topic totals to its column sums, the grand total to
+    the live tokens. Returns the live tokens."""
+    cfg = workers[0].config
+    wt = workers[0].word_topic_counts()
+    if not np.array_equal(wt, lda_mirror(workers, cfg.vocab_size,
+                                          cfg.num_topics)):
+        raise AssertionError(f"{what}: the word-topic table differs from "
+                             f"the assignment mirror")
+    nk = np.asarray(workers[0].topic_counts.get())[: cfg.num_topics]
+    if not np.array_equal(nk, wt.sum(axis=0)):
+        raise AssertionError(f"{what}: the topic totals differ from the "
+                             f"table's column sums")
+    live = int(sum(int((w.tokens >= 0).sum()) for w in workers))
+    if float(wt.sum(dtype=np.float64)) != live:
+        raise AssertionError(f"{what}: {float(wt.sum())} counts for {live} "
+                             f"tokens")
+    return live
+
+
+def lda_scores(tokens, z, wt, nk, u, cfg) -> np.ndarray:
+    """Every token's Gumbel-perturbed log conditional, in float64, from a
+    sweep's inputs (the near-tie rule)."""
+    K = cfg.num_topics
+    live = tokens >= 0
+    zoh = np.eye(K)[z] * live[..., None]
+    n_dk = zoh.sum(axis=1, keepdims=True) - zoh
+    logp = (np.log(n_dk + cfg.alpha) + np.log(wt[np.maximum(tokens, 0)]
+                                              + cfg.beta)
+            - np.log(nk + cfg.vocab_size * cfg.beta))
+    return logp - np.log(-np.log(u.astype(np.float64)))
+
+
+def lda_parity(mvt, device: str) -> dict:
+    """The planted-topic configuration for LDA_PARITY_SWEEPS sweeps on
+    ``device`` with the numpy draws: per sweep the assignments before it,
+    the tables before it and after it."""
+    from multiverso_tpu_torch.models.lda import (LDAConfig, PSGibbsLDA,
+                                                 synthetic_corpus)
+    p = LDA_PLANTED
+    docs, _ = synthetic_corpus(p["vocab"], p["topics"], p["docs"],
+                               p["doc_len"], seed=p["seed"])
+    mvt.init(device=device)
+    try:
+        lda = PSGibbsLDA(LDAConfig(p["vocab"], p["topics"], alpha=0.5,
+                                   beta=0.1, seed=p["seed"]), docs)
+        hook = lda_draw_hook(LDA_SEED)
+        lda.draw_hook = hook
+        out = {"tokens": lda.tokens, "cfg": lda.config, "z": [], "wt": [],
+               "nk": [], "u": []}
+        for i in range(LDA_PARITY_SWEEPS):
+            out["z"].append(lda.z.copy())
+            out["wt"].append(lda.word_topic_counts())
+            out["nk"].append(np.asarray(lda.topic_counts.get())[:p["topics"]])
+            out["u"].append(hook(i, lda.z.shape + (p["topics"],)))
+            lda.sweep()
+            lda_check_counts([lda], f"{device} parity sweep {i}")
+        out["z"].append(lda.z.copy())
+        return out
+    finally:
+        stop_runtime(mvt)
+
+
+def lda_card_vs_cpu(mvt) -> dict:
+    """The planted-topic run on the card and on the CPU from the same
+    draws: equal assignments sweep by sweep, except where the CPU's two
+    best scores are within LDA_TIE (counted; the runs part there, so the
+    comparison stops after that sweep)."""
+    card, cpu = lda_parity(mvt, "cuda"), lda_parity(mvt, "cpu")
+    ties, compared = 0, 0
+    for i in range(LDA_PARITY_SWEEPS):
+        bad = np.argwhere(card["z"][i + 1] != cpu["z"][i + 1])
+        compared = i + 1
+        if len(bad) == 0:
+            continue
+        scores = lda_scores(cpu["tokens"], cpu["z"][i], cpu["wt"][i],
+                            cpu["nk"][i], cpu["u"][i], cpu["cfg"])
+        top2 = np.sort(scores, axis=-1)[..., -2:]
+        gap = top2[..., 1] - top2[..., 0]
+        for b in bad:
+            if gap[tuple(b)] >= LDA_TIE:
+                raise AssertionError(
+                    f"LDA card vs CPU, sweep {i}: token {tuple(b)} differs "
+                    f"with a score gap of {gap[tuple(b)]}")
+        ties += len(bad)
+        break
+    return {"sweeps_compared": compared, "near_tie_mismatches": ties}
+
+
+def lda_planted(mvt, device: str) -> dict:
+    """tests/test_lda.py's planted-topic case on ``device``, with the
+    port's lockcheck on from before init to after shutdown."""
+    from multiverso_tpu_torch.dashboard import Dashboard
+    from multiverso_tpu_torch.fault import lockcheck
+    from multiverso_tpu_torch.models.lda import (LDAConfig, PSGibbsLDA,
+                                                 purity, synthetic_corpus)
+    p = LDA_PLANTED
+    docs, labels = synthetic_corpus(p["vocab"], p["topics"], p["docs"],
+                                    p["doc_len"], seed=p["seed"])
+    cycles0 = Dashboard.counter_value("LOCK_ORDER_CYCLES")
+    lockcheck.enable()
+    try:
+        mvt.init(device=device)
+        try:
+            lda = PSGibbsLDA(LDAConfig(p["vocab"], p["topics"], alpha=0.5,
+                                       beta=0.1, seed=p["seed"]), docs)
+            lda.run(p["sweeps"])
+            lda_check_counts([lda], "planted topics")
+            score = purity(lda.doc_topics(), labels, p["topics"])
+        finally:
+            stop_runtime(mvt)
+    finally:
+        lockcheck.disable()
+    cycles = [f for f in lockcheck.take_findings()
+              if f["kind"] == "lock_order_cycle"]
+    if cycles or Dashboard.counter_value("LOCK_ORDER_CYCLES") != cycles0:
+        raise AssertionError(f"LDA planted topics: lock-order cycles "
+                             f"{lockcheck.report_text()}")
+    if score <= p["bar"]:
+        raise AssertionError(f"LDA planted topics: purity {score} <= "
+                             f"{p['bar']}")
+    return {"purity": score, "lock_order_cycles": 0}
+
+
+def lda_example(device: str) -> float:
+    """examples/lda_topics.py's run through the port's twin of it."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "multiverso_tpu_torch", "examples", "lda_topics.py")
+    spec = importlib.util.spec_from_file_location("lda_topics_example", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    score = module.main(device=device)
+    from multiverso_tpu_torch.config import FLAGS
+    FLAGS.reset()
+    if score <= LDA_EXAMPLE_BAR:
+        raise AssertionError(f"LDA example: purity {score} <= "
+                             f"{LDA_EXAMPLE_BAR}")
+    return score
+
+
+def lda_sweep_device_ms(lda, iters: int = 5) -> float:
+    """CUDA-event ms of one sweep function call on ``lda``'s current
+    state (the pull done first, outside the timing)."""
+    K = lda.config.num_topics
+    words, slots = lda.candidate_slots()
+    dev = lda.device
+    wt_rows = lda.word_topic.wait_device(
+        lda.word_topic.get_device_async(words), words)[:, :K]
+    nk = torch.from_numpy(np.asarray(lda.topic_counts.get(),
+                                     np.float32)[:K].copy()).to(dev)
+    args = (wt_rows, nk, torch.from_numpy(slots).to(dev),
+            torch.from_numpy(lda.z).to(dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return device_ms(lambda: lda._sweep(*args, generator=gen), iters)
+
+
+def lda_path_rows(mvt, rows, lda) -> dict:
+    """One of the LDA path's pulls and one of its pushes against the plain
+    versions of the row kernels, bit for bit, on the same table and the
+    same padded ids: the pull's reply against ``gather_rows_plain`` of the
+    table before it, the table after a sweep's delta push against
+    ``scatter_add_rows_plain``. The delta is then pushed back negated:
+    integer counts, so the table is bitwise what it was."""
+    from multiverso_tpu_torch.utils import next_pow2
+    K = lda.config.num_topics
+    wt = lda.word_topic
+    words, slots = lda.candidate_slots()
+    n, dev = len(words), lda.device
+
+    def padded_ids(bucket):
+        ids = np.full(bucket, wt.sentinel_row, np.int32)
+        ids[:n] = words
+        return torch.from_numpy(ids).to(dev)
+
+    with mvt.worker(0):
+        before = wt.get_device()
+        pulled = wt.wait_device(wt.get_device_async(words), words)
+        pull_ids = padded_ids(max(next_pow2(n + 1), rows.ROW_GROUP))
+        if not torch.equal(bits(pulled),
+                           bits(rows.gather_rows_plain(before, pull_ids))):
+            raise AssertionError("LDA pull: the gathered rows differ from "
+                                 "gather_rows_plain on the same table")
+        nk = torch.from_numpy(np.asarray(lda.topic_counts.get(),
+                                         np.float32)[:K].copy()).to(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(LDA_SEED)
+        _, d_wt, _, _ = lda._sweep(pulled[:, :K], nk,
+                                   torch.from_numpy(slots).to(dev),
+                                   torch.from_numpy(lda.z).to(dev),
+                                   generator=gen)
+        delta = d_wt[:n].contiguous()
+        wt.wait(wt.add_device_async(delta, words))
+        after = wt.get_device()
+        push_ids = padded_ids(max(next_pow2(n), rows.ROW_GROUP))
+        vals = torch.zeros((len(push_ids), before.shape[1]),
+                           dtype=before.dtype, device=dev)
+        vals[:n, :K] = delta
+        want = rows.scatter_add_rows_plain(before.clone(), push_ids, vals)
+        if not torch.equal(bits(after), bits(want)):
+            raise AssertionError("LDA push: the table differs from "
+                                 "scatter_add_rows_plain on the same delta")
+        wt.wait(wt.add_device_async(-delta, words))
+        if not torch.equal(bits(wt.get_device()), bits(before)):
+            raise AssertionError("LDA push: the negated delta did not "
+                                 "restore the table")
+    changed = int((delta != 0).sum())
+    del before, after, want, vals, pulled, d_wt, delta
+    torch.cuda.empty_cache()
+    return {"rows": n, "pull_bucket": len(pull_ids),
+            "push_bucket": len(push_ids), "delta_nonzeros": changed}
+
+
+def lda_phase(mvt, rows, device: str, card: str, scratch: str,
+              sizes=None) -> tuple:
+    """Phase 17: LDA at the NYTimes shape on ``device``, then the quality
+    and parity legs at the test configurations. Returns (metrics, the row
+    kernels' launches over the full-width run). ``sizes`` shrinks the
+    full-width run for a CPU rehearsal."""
+    from multiverso_tpu_torch.models.lda import (LDAConfig, PSGibbsLDA,
+                                                 synthetic_corpus)
+    from multiverso_tpu_torch.obs.logger import load_metrics
+    sz = dict(vocab=LDA_VOCAB, topics=LDA_TOPICS, doc_len=LDA_DOC_LEN,
+              workers=LDA_WORKERS, docs=LDA_DOCS_PER_WORKER,
+              sweeps=LDA_SWEEPS)
+    sz.update(sizes or {})
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    n_docs = sz["workers"] * sz["docs"]
+    t0 = time.perf_counter()
+    docs, _ = synthetic_corpus(sz["vocab"], sz["topics"], n_docs,
+                               sz["doc_len"], seed=LDA_SEED)
+    corpus_s = time.perf_counter() - t0
+    metrics_path = os.path.join(scratch, "lda_metrics.jsonl")
+    mvt.init(device=device, local_workers=sz["workers"],
+             metrics_path=metrics_path, metrics_interval_seconds=5.0)
+    try:
+        zero_launches(rows)
+        t0 = time.perf_counter()
+        workers, tables = [], None
+        for w in range(sz["workers"]):
+            cfg = LDAConfig(sz["vocab"], sz["topics"], alpha=LDA_ALPHA,
+                            beta=LDA_BETA, seed=LDA_SEED + w)
+            lda = PSGibbsLDA(cfg, docs[w * sz["docs"]:(w + 1) * sz["docs"]],
+                             pad_to=sz["doc_len"], tables=tables)
+            tables = (lda.word_topic, lda.topic_counts)
+            workers.append(lda)
+        seed_s = time.perf_counter() - t0
+        timings = [[] for _ in workers]
+        moved = [0] * len(workers)
+
+        def sweeps(n, log=True):
+            def run(slot):
+                with mvt.worker(slot):
+                    for _ in range(n):
+                        t = time.perf_counter()
+                        n_moved = workers[slot].sweep()
+                        if log:
+                            moved[slot] += n_moved
+                            timings[slot].append(dict(
+                                workers[slot].last_timings, start=t,
+                                end=time.perf_counter()))
+            join_workers(len(workers), run)
+
+        t0 = time.perf_counter()
+        sweeps(sz["sweeps"])
+        sweep_wall = time.perf_counter() - t0
+        launches = launch_counts(rows)
+        # after every worker's first sweep (its kernels' first loads)
+        steady_from = max(ts[0]["end"] for ts in timings)
+        steady_end = max(ts[-1]["end"] for ts in timings)
+        t0 = time.perf_counter()
+        live = lda_check_counts(workers, "LDA at full width")
+        check_s = time.perf_counter() - t0
+        dev_ms = lda_sweep_device_ms(workers[0]) if device == "cuda" else None
+        path_rows = (lda_path_rows(mvt, rows, workers[0])
+                     if device == "cuda" else None)
+        # the card's busy share over one more round of sweeps, profiled;
+        # the counts are checked again after it
+        prof = (profile(lambda: sweeps(1, log=False))
+                if device == "cuda" else None)
+        busy = (prof["device_busy_ms"] / prof["wall_ms"]
+                if prof and isinstance(prof["device_busy_ms"], float) else None)
+        lda_check_counts(workers, "LDA after the profiled round")
+        words = [len(np.unique(w.tokens[w.tokens >= 0])) for w in workers]
+    finally:
+        stop_runtime(mvt)
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if device == "cuda" else None)
+    snaps = load_metrics(metrics_path)
+    if not any("SERVER_PROCESS_ADD_MSG" in s.get("monitors", {})
+               for s in snaps):
+        raise AssertionError("LDA: no metrics snapshot holds "
+                             "SERVER_PROCESS_ADD_MSG")
+    ms = lambda key: percentiles([t[key] * 1e3 for ts in timings for t in ts])
+    for ts in timings:
+        for t in ts:
+            t["total"] = t["end"] - t["start"]
+    metrics = {
+        "vocab": sz["vocab"], "topics": sz["topics"],
+        "workers": sz["workers"], "docs": n_docs, "doc_len": sz["doc_len"],
+        "sweeps": sz["sweeps"], "live_tokens": live,
+        "distinct_words_per_worker": words,
+        "tokens_per_s": live * sz["sweeps"] / sweep_wall,
+        "tokens_per_s_after_first_sweep": (live * (sz["sweeps"] - 1)
+                                           / (steady_end - steady_from)),
+        "first_sweep_ms": [ts[0]["total"] * 1e3 for ts in timings],
+        "device_busy_share_profiled_round": busy,
+        "peak_device_gb": peak_gb, "path_rows_bitwise": path_rows,
+        "sweep_ms": ms("total"), "pull_ms": ms("pull"),
+        "sweep_fn_host_ms": ms("sweep"), "push_ms": ms("push"),
+        "sweep_fn_device_ms": dev_ms,
+        "tokens_moved": moved,
+        "sweep_wall_s": sweep_wall, "corpus_s": corpus_s,
+        "seed_push_s": seed_s, "count_check_s": check_s,
+        "metrics_snapshots": len(snaps)}
+    print(f"LDA at {sz['vocab']} x {sz['topics']} on {card}: "
+          f"{json.dumps(metrics)}", flush=True)
+    metrics["card_vs_cpu"] = lda_card_vs_cpu(mvt) if device == "cuda" else None
+    metrics["planted"] = lda_planted(mvt, device)
+    metrics["example_purity"] = lda_example(device)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    return metrics, launches
 
 
 KERNELS = {
@@ -5083,11 +5581,21 @@ def smoke(args, scratch: str) -> int:
     print(f"sharded serving phase: {sharded['phase_s']:.1f} s ({card})",
           flush=True)
 
-    # 17. the kernel line, then the verdict
+    # 17. LDA at the NYTimes shape: the row kernels at rows 1,000 wide
+    lda, lda_launches = lda_phase(mvt, rows, "cuda", card, scratch)
+    print(f"LDA on {card}: {json.dumps(lda)}; row-kernel launches over the "
+          f"full-width run: {json.dumps(lda_launches)}", flush=True)
+    print(f"LDA phase: {lda['phase_s']:.1f} s ({card})", flush=True)
+    for k, n in lda_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k}: no launch on the LDA path")
+
+    # 18. the kernel line, then the verdict
     table = []
     for k, where in KERNELS.items():
         r = results[k]
-        print(f"kernel {k}: launches={launches[k]} kernel_ms={r['ms']} "
+        print(f"kernel {k}: launches={launches[k]} "
+              f"lda_launches={lda_launches.get(k, 0)} kernel_ms={r['ms']} "
               f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
               f"bound_ms={r['bound_ms']} launch_floor_ms={floor} ({card})")
         table.append({"name": k, "route": "cuda",
@@ -5097,6 +5605,8 @@ def smoke(args, scratch: str) -> int:
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                       "launch_floor_ms": floor,
+                      # phase 17: launches over the LDA run at full width
+                      "lda_launches": lda_launches.get(k, 0),
                       # phase 16: launches in the shard processes, by role
                       "shard_process_launches": {
                           role: c.get(k, 0)

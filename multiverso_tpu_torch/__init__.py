@@ -21,6 +21,13 @@ Public surface (MV_* parity, the part ported so far):
     serve / remote_connect / stop_serving
                                    (tables served to other processes)
     stats / watermark / digest     (slot-free probes of a serving process)
+    stats_all / traces / attribution / chargeback / top
+                                   (fleet views: merged stats, stitched
+                                    traces, critical-path and per-tenant
+                                    attribution, the live fleet table)
+    slo_engine / profiler          (the SLO burn-rate engine, the
+                                    sampling profiler)
+    Timer / register_program / registered_programs
     durable_recover / wal_writer / warm_standby
                                    (write-ahead log, restart recovery,
                                     failover and read replicas)
@@ -68,6 +75,11 @@ Checkpoints live in :mod:`multiverso_tpu_torch.checkpoint` (``store_table``,
 package, over the stream layer of :mod:`multiverso_tpu_torch.io`; their
 files load in either package.
 
+``init`` also starts what the observability flags ask for: periodic JSONL
+snapshots (``metrics_path``), the time-series sampler, the sampling
+profiler (``profile_continuous``) and the SLO engine (``slo_spec``);
+``shutdown`` stops them.
+
 ``init`` puts the tables on ``cuda`` unless the caller asks for the CPU
 (``init(device="cpu")`` or ``-device=cpu``); it raises when CUDA is absent
 and the CPU was not asked for.
@@ -80,9 +92,10 @@ from typing import Any, Dict, Iterator, Optional, Sequence
 
 from multiverso_tpu_torch import log  # noqa: F401  (re-export)
 from multiverso_tpu_torch.config import get_flag, parse_cmd_flags, set_flag  # noqa: F401
-from multiverso_tpu_torch.dashboard import Dashboard, monitor  # noqa: F401
+from multiverso_tpu_torch.dashboard import Dashboard, Timer, monitor  # noqa: F401
 from multiverso_tpu_torch.runtime.node import Role  # noqa: F401
-from multiverso_tpu_torch.runtime.programs import clear_programs
+from multiverso_tpu_torch.runtime.programs import (  # noqa: F401
+    clear_programs, register_program, registered_programs)
 from multiverso_tpu_torch.runtime.zoo import Zoo
 
 __version__ = "0.1.0"
@@ -106,33 +119,108 @@ def init(argv: Optional[Sequence[str]] = None, sync: Optional[bool] = None,
     except BaseException:
         _stop_profiling(export=False)
         raise
-    if float(get_flag("timeseries_interval_seconds")) > 0:
-        # the windowed views the hot-range detector reads
-        from multiverso_tpu_torch.obs.timeseries import TIMESERIES
-        TIMESERIES.start()
+    _start_metrics_logger()
+    _start_observability()
     return started
 
 
 def shutdown(finalize_net: bool = True) -> None:
     """Stop the runtime and forget its named programs: a registered program
     closes over the tables it was built for."""
-    from multiverso_tpu_torch.obs.timeseries import TIMESERIES
-    TIMESERIES.stop()
     Zoo.instance().stop(finalize_net)
     clear_programs()
     _stop_profiling()
+    _stop_metrics_logger()
+    _stop_observability()
+
+
+_metrics_logger = None
+
+
+def _start_metrics_logger() -> None:
+    """Start the periodic JSONL snapshot thread when the ``metrics_path``
+    flag is set (obs/logger.py); idempotent across repeated init()."""
+    global _metrics_logger
+    path = str(get_flag("metrics_path"))
+    if not path or _metrics_logger is not None:
+        return
+    from multiverso_tpu_torch.obs.logger import MetricsLogger
+    _metrics_logger = MetricsLogger(
+        path, float(get_flag("metrics_interval_seconds")))
+
+
+def _stop_metrics_logger() -> None:
+    global _metrics_logger
+    if _metrics_logger is not None:
+        _metrics_logger.close()  # flushes a final snapshot
+        _metrics_logger = None
+
+
+_slo_engine = None
+
+
+def _start_observability() -> None:
+    """Start the observability plane's background halves: the
+    time-series sampler (``timeseries_interval_seconds``; <= 0 disables),
+    the sampling profiler (``profile_continuous``) and — only when
+    ``slo_spec`` declares objectives — the SLO burn-rate engine
+    (obs/slo.py). Idempotent across repeated init()."""
+    global _slo_engine
+    if float(get_flag("timeseries_interval_seconds")) > 0:
+        # the windowed views the hot-range detector and the SLOs read
+        from multiverso_tpu_torch.obs.timeseries import TIMESERIES
+        TIMESERIES.start()
+    if bool(get_flag("profile_continuous")):
+        from multiverso_tpu_torch.obs.profiler import PROFILER
+        PROFILER.hz = max(float(get_flag("profile_hz")), 1e-3)
+        PROFILER.max_frames = int(get_flag("profile_max_frames"))
+        PROFILER.emit_metrics = True
+        PROFILER.start()
+    if str(get_flag("slo_spec")).strip() and _slo_engine is None:
+        from multiverso_tpu_torch.obs.slo import SLOEngine
+        _slo_engine = SLOEngine()
+        _slo_engine.start()
+
+
+def _stop_observability() -> None:
+    global _slo_engine
+    from multiverso_tpu_torch.obs.timeseries import TIMESERIES
+    TIMESERIES.stop()
+    from multiverso_tpu_torch.obs.profiler import PROFILER
+    PROFILER.stop()
+    if _slo_engine is not None:
+        _slo_engine.stop()
+        _slo_engine = None
+
+
+def slo_engine():
+    """The flag-started SLO engine (None unless ``slo_spec`` was set at
+    init); tests and dashboards may also build their own
+    :class:`~multiverso_tpu_torch.obs.slo.SLOEngine` directly."""
+    return _slo_engine
+
+
+def profiler():
+    """The process-wide sampling profiler
+    (:data:`~multiverso_tpu_torch.obs.profiler.PROFILER`) — running when
+    ``profile_continuous`` was set at init, otherwise idle but usable
+    directly (``mvt.profiler().start()`` / ``.sample_once()``)."""
+    from multiverso_tpu_torch.obs.profiler import PROFILER
+    return PROFILER
 
 
 _trace_profile = None  # the trace_dir flag's torch.profiler session
 
 
 def _configure_profiling() -> None:
-    """``trace_dir``: record a ``torch.profiler`` trace of the span from
-    init to shutdown (the card's kernels too when CUDA is up), with every
-    ``dashboard.monitor`` section as a named scope in it."""
+    """``profile_annotations`` makes every ``dashboard.monitor`` section a
+    named ``torch.profiler`` scope; ``trace_dir`` also records a
+    ``torch.profiler`` trace of the span from init to shutdown (the
+    card's kernels too when CUDA is up), with those scopes in it."""
     global _trace_profile
     trace_dir = str(get_flag("trace_dir"))
-    Dashboard.profile_annotations = bool(trace_dir)
+    Dashboard.profile_annotations = (bool(get_flag("profile_annotations"))
+                                     or bool(trace_dir))
     if trace_dir and _trace_profile is None:
         import torch
         from torch._C._profiler import _ExperimentalConfig
@@ -343,6 +431,154 @@ def watermark(endpoint: str, timeout: float = 10.0):
     Slot-free, like ``stats``."""
     from multiverso_tpu_torch.runtime.remote import fetch_watermark
     return fetch_watermark(endpoint, timeout=timeout)
+
+
+def stats_all(endpoints: Any, timeout: Optional[float] = None,
+              replicas: Optional[Sequence[Sequence[str]]] = None):
+    """Fan ``mvt.stats`` across a shard group and merge: counters summed,
+    histograms merged by bucket addition (quantiles compute on the union
+    of the members' exact counts), with per-shard sub-views kept on
+    ``.shards``. ``endpoints``: list of host:port, a comma-separated
+    string, or a :class:`~multiverso_tpu_torch.shard.group.ShardGroup` (whose
+    read-replica fleets are probed automatically). ``replicas`` — one
+    endpoint list per shard — adds per-replica sub-views on
+    ``.replicas`` (a dict ``endpoint -> StatsSnapshot``), merged into
+    the totals alongside the primaries (replica replay-lag gauges
+    REPLICA_WATERMARK / REPLICA_LAG_RECORDS live there).
+
+    Probes run CONCURRENTLY with a per-endpoint timeout (default: the
+    ``stats_timeout_seconds`` flag) and the merge is PARTIAL: members
+    that do not answer are listed on the result's ``.unreachable``
+    instead of failing the whole fan-out — one dead replica must not
+    blind the operator to the rest of the fleet. Raises only when NO
+    member answered."""
+    import threading as _threading
+    from multiverso_tpu_torch.obs.metrics import merge_stats
+    from multiverso_tpu_torch.shard.partition import parse_shard_endpoints
+    if timeout is None:
+        timeout = float(get_flag("stats_timeout_seconds"))
+    if replicas is None:
+        replicas = getattr(endpoints, "replica_endpoints", None)
+    endpoints = getattr(endpoints, "endpoints", endpoints)
+    primary_eps = list(parse_shard_endpoints(endpoints))
+    replica_eps = [str(e) for fleet in (replicas or []) for e in fleet]
+    results: dict = {}
+    lock = _threading.Lock()
+
+    def probe(ep: str) -> None:
+        try:
+            snap = stats(ep, timeout=timeout)
+        except (OSError, RuntimeError):
+            snap = None
+        with lock:
+            results[ep] = snap
+
+    all_eps = primary_eps + [e for e in replica_eps
+                             if e not in primary_eps]
+    threads = [_threading.Thread(target=probe, args=(ep,), daemon=True,
+                                 name="mv-stats-probe")
+               for ep in all_eps]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout + 1.0)
+    snaps = [results[e] for e in primary_eps
+             if results.get(e) is not None]
+    replica_snaps = {e: results[e] for e in replica_eps
+                     if results.get(e) is not None}
+    unreachable = [e for e in all_eps if results.get(e) is None]
+    if not snaps and not replica_snaps:
+        raise ConnectionError(
+            f"stats_all: no endpoint answered within {timeout:.1f}s "
+            f"({', '.join(all_eps)})")
+    merged = merge_stats(snaps + list(replica_snaps.values()))
+    merged.shards = snaps  # primaries only; replicas get their own view
+    merged.replicas = replica_snaps
+    merged.unreachable = unreachable
+    return merged
+
+
+def traces(endpoints: Any, timeout: Optional[float] = None,
+           req_id: Optional[int] = None):
+    """Pull and stitch cross-process traces: one slot-free
+    ``Control_Traces`` probe per endpoint plus this process's own trace
+    store, clock-corrected and merged into causally-ordered
+    :class:`~multiverso_tpu_torch.obs.collector.StitchedTrace` spans
+    (docs/observability.md). ``endpoints``: a list of host:port, a
+    :class:`~multiverso_tpu_torch.shard.group.ShardGroup`, or a
+    :class:`~multiverso_tpu_torch.shard.router.ShardedClient` layout —
+    replica fleets are included automatically. Returns the stitched
+    spans (all, or just ``req_id``'s), oldest first."""
+    from multiverso_tpu_torch.obs.collector import TraceCollector
+    eps = _fleet_endpoints(endpoints)
+    collector = TraceCollector(eps, timeout=timeout)
+    collector.collect()
+    return collector.stitch(req_id)
+
+
+def attribution(endpoints: Any, timeout: Optional[float] = None,
+                quantile: Optional[float] = None,
+                include_profiles: bool = True):
+    """Fleet latency attribution (``mvt.attribution``): pull + stitch the
+    fleet's traces, decompose every span into named critical-path
+    segments (in-process stage gaps and ``wire:`` boundary crossings),
+    and aggregate them into an
+    :class:`~multiverso_tpu_torch.obs.critpath.AttributionReport` — the
+    "p99 Get: 61% replica apply-lag wait, 22% wire" table. ``quantile``
+    (e.g. ``0.99``) restricts aggregation to the slowest tail;
+    ``include_profiles`` annotates the report with each process's
+    sampling profile over the slot-free ``Control_Profile`` RPC."""
+    from multiverso_tpu_torch.obs.critpath import fleet_attribution
+    return fleet_attribution(_fleet_endpoints(endpoints), timeout=timeout,
+                             quantile=quantile,
+                             include_profiles=include_profiles)
+
+
+def chargeback(endpoints: Any, timeout: Optional[float] = None,
+               quantile: Optional[float] = None):
+    """Fleet cost attribution BY TENANT (``mvt.chargeback``): pull +
+    stitch the fleet's tenant-tagged traces and partition the same
+    critical-path segments :func:`attribution` decomposes into a
+    per-tenant table — share-of-fleet-time (sums to ~1.0), apply+WAL
+    time, p99, bytes pushed, Adds admitted vs shed — the "which tenant
+    bought which fraction of the machine" answer
+    (docs/observability.md §Chargeback). Returns a
+    :class:`~multiverso_tpu_torch.obs.chargeback.ChargebackReport`; call
+    ``.display()`` to print it."""
+    from multiverso_tpu_torch.obs.chargeback import fleet_chargeback
+    return fleet_chargeback(_fleet_endpoints(endpoints), timeout=timeout,
+                            quantile=quantile)
+
+
+def top(endpoints: Any, timeout: Optional[float] = None,
+        format: str = "text") -> str:
+    """The live fleet view (``mvt.top``): one stats+watermark probe per
+    serving endpoint, rendered as a terminal table (or ``format="html"``
+    for a browser tab) of per-shard/per-replica roles, watermarks, lag,
+    served request counts, Get p99 and burn-alert state, plus the local
+    SLO engine's panel when one is running (obs/slo.py)."""
+    from multiverso_tpu_torch.obs.slo import fleet_top
+    return fleet_top(_fleet_endpoints(endpoints), engine=_slo_engine,
+                     timeout=timeout, format=format)
+
+
+def _fleet_endpoints(endpoints: Any) -> list:
+    """Flatten a fleet handle — ShardGroup, layout manifest dict, list,
+    or comma-string — into the full serving-endpoint list (primaries
+    first, then replica fleets), deduplicated in order."""
+    from multiverso_tpu_torch.shard.partition import parse_shard_endpoints
+    replicas = getattr(endpoints, "replica_endpoints", None)
+    if isinstance(endpoints, dict):  # a layout manifest
+        replicas = list((endpoints.get("replicas") or {}).values())
+        endpoints = endpoints.get("endpoints", [])
+    eps = list(parse_shard_endpoints(
+        getattr(endpoints, "endpoints", endpoints)))
+    for fleet in (replicas or []):
+        eps.extend(str(e) for e in fleet)
+    seen: dict = {}
+    for e in eps:
+        seen.setdefault(e)
+    return list(seen)
 
 
 def stop_serving() -> None:

@@ -563,3 +563,47 @@ define_int("replicas", 0,
            "the primary's WAL and answers slot-free watermark-stamped "
            "Gets); 0 = none. Implies durability (replication tails the "
            "WAL)")
+
+# The rest of the observability plane (obs/{logger,collector,critpath,
+# chargeback,slo}.py, fault/lockcheck.py), with the JAX package's names
+# and defaults.
+define_string("metrics_path", "",
+              "append periodic JSONL dashboard snapshots (monitors, "
+              "counters, gauges, histograms as bucket arrays) to this file "
+              "— the format bench.py's load_metrics ingests. Empty disables "
+              "the MetricsLogger thread")
+define_double("metrics_interval_seconds", 10.0,
+              "seconds between metrics_path snapshot lines")
+define_string("slo_spec", "",
+              "declarative SLOs, ';'-separated: "
+              "name:histogram=H,p=0.99,target=SEC[,windows=SHORT/LONG] | "
+              "name:counter=C,target=PER_SEC[,windows=...] | "
+              "name:gauge=G,target=VALUE. A firing burn alert increments "
+              "SLO_BURN_ALERTS and triggers a tagged flight-recorder "
+              "dump. Empty disables the engine")
+define_double("slo_check_interval_seconds", 5.0,
+              "seconds between SLO engine evaluations; 0 disables the "
+              "engine thread (manual evaluate_now() still works)")
+define_bool("profile_continuous", False,
+            "start the process-wide sampling profiler inside mvt.init and "
+            "feed PROFILE_* counters/gauges into the dashboard (and so "
+            "the time-series recorder) on every sampling pass")
+define_bool("profile_on_alert", True,
+            "attach a sampling-profiler report to every slo_burn flight "
+            "dump: the continuous profiler's report when it is running, "
+            "otherwise a short synchronous burst capture (~50ms)")
+define_bool("profile_annotations", False,
+            "wrap dashboard monitor sections in torch.profiler "
+            "record_function scopes so SERVER_PROCESS_* sections show up "
+            "by name in profiler traces")
+define_double("stats_timeout_seconds", 5.0,
+              "per-endpoint timeout for the mvt.stats_all fan-out: a dead "
+              "or wedged endpoint lands on the merged snapshot's "
+              "unreachable list instead of stalling the whole probe")
+define_double("deadline_tighten_ratio", 0.0,
+              "floor fraction of request_deadline_seconds the client "
+              "shrinks minted deadlines toward while the SLO burn engine "
+              "fires (geometric per-mint steps both down and back up, "
+              "every transition flight-recorded) so backlog age tracks "
+              "the error budget. 0 disables: minting is bit-identical to "
+              "the plain request_deadline_seconds path")

@@ -25,6 +25,10 @@ holds the flax leaves in ``jax.tree_util`` order (dict keys sorted, so
 and (in, out) dense kernels; the port's holds its parameter names sorted,
 in torch's OIHW and (out, in) layouts. The carry is a permutation plus a
 transpose per leaf.
+A JAX ``PSGibbsLDA``'s state (tokens, assignments, counts) leaves with
+:func:`lda_state_from_jax`, and a port ``PSGibbsLDA`` resumes from it
+(``z=``); the addition-RNN example's flax parameters become the port
+example's ``state_dict`` with :func:`addition_rnn_from_jax`.
 Nothing here imports the JAX package: the caller hands over plain arrays.
 A checkpoint file (``checkpoint.py``) is the second way across: the JAX
 package's ``store_table`` writes the same state, and the port's
@@ -349,3 +353,57 @@ def resnet_table_to_jax(flat: np.ndarray, config) -> np.ndarray:
         raise ValueError(f"resnet_table_to_jax: {flat.size} values, the "
                          f"config's parameters are {n}")
     return np.concatenate([parts[i].reshape(-1) for i in jax_order])
+
+
+def lda_state_from_jax(jax_lda) -> Dict[str, np.ndarray]:
+    """A JAX ``PSGibbsLDA``'s state as numpy: ``tokens`` (D, L) with -1
+    pads, its assignments ``z``, the word-topic counts (vocab, K) and the
+    topic totals (K,). A port ``PSGibbsLDA`` built over the same documents
+    with ``z=state["z"]`` seeds its tables to the same counts."""
+    k = int(jax_lda.config.num_topics)
+    return {
+        "tokens": np.array(jax_lda.tokens, dtype=np.int32, copy=True),
+        "z": np.array(jax_lda.z, dtype=np.int32, copy=True),
+        "word_topic": np.array(jax_lda.word_topic_counts(), dtype=np.float32,
+                               copy=True),
+        "topic_counts": np.array(np.asarray(jax_lda.topic_counts.get())[:k],
+                                 dtype=np.float32, copy=True),
+    }
+
+
+def _lstm_from_flax(cell: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A flax ``LSTMCell``'s parameters as ``torch.nn.LSTM`` layer 0's: the
+    ``i*`` kernels (no bias) stack into ``weight_ih`` and the ``h*`` kernels
+    into ``weight_hh`` in torch's gate order i, f, g, o, each transposed
+    to (out, in); flax has one bias (the ``h*`` Denses'), so ``bias_ih``
+    is zero and ``bias_hh`` is flax's."""
+    gates = ("i", "f", "g", "o")
+
+    def kernel(name):
+        return np.asarray(cell[name]["kernel"], np.float32).T
+
+    w_ih = np.concatenate([kernel("i" + g) for g in gates])
+    w_hh = np.concatenate([kernel("h" + g) for g in gates])
+    b_hh = np.concatenate([np.asarray(cell["h" + g]["bias"], np.float32)
+                           for g in gates])
+    return {f"{prefix}.weight_ih_l0": torch.from_numpy(w_ih),
+            f"{prefix}.weight_hh_l0": torch.from_numpy(w_hh),
+            f"{prefix}.bias_ih_l0": torch.zeros(b_hh.shape, dtype=torch.float32),
+            f"{prefix}.bias_hh_l0": torch.from_numpy(b_hh)}
+
+
+def addition_rnn_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX addition-RNN example's flax ``params`` (``Embed_0``,
+    ``LSTMCell_0`` the encoder, ``LSTMCell_1`` the decoder, ``Dense_0``)
+    as a ``state_dict`` of the port example's ``AdditionRNN`` (CPU
+    float32 tensors; ``load_state_dict`` moves them to the module's
+    device). The ``Dense`` kernel is transposed to torch's (out, in)."""
+    out = {"embed.weight": torch.from_numpy(np.array(
+        flax_params["Embed_0"]["embedding"], np.float32))}
+    out.update(_lstm_from_flax(flax_params["LSTMCell_0"], "encoder"))
+    out.update(_lstm_from_flax(flax_params["LSTMCell_1"], "decoder"))
+    out["dense.weight"] = torch.from_numpy(np.array(
+        np.asarray(flax_params["Dense_0"]["kernel"], np.float32).T))
+    out["dense.bias"] = torch.from_numpy(np.array(
+        flax_params["Dense_0"]["bias"], np.float32))
+    return out

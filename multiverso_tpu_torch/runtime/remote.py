@@ -61,7 +61,7 @@ import signal
 import threading
 import time
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -1027,6 +1027,26 @@ def fetch_watermark(endpoint: str, timeout: float = 10.0) -> Dict[str, Any]:
                          timeout=timeout, what="watermark")
 
 
+def fetch_traces(endpoint: str, timeout: float = 10.0) -> Dict[str, Any]:
+    """One-shot trace pull: ``{"role", "endpoint", "t_reply_ns",
+    "traces": {req_id: [[stage, t_ns], ...]}}`` from any serving process
+    (primary or replica), slot-free. Wire keys arrive as strings/ints
+    depending on codec; the collector normalizes."""
+    return control_probe(endpoint, MsgType.Control_Traces,
+                         MsgType.Control_Reply_Traces,
+                         timeout=timeout, what="traces")
+
+
+def fetch_profile(endpoint: str, timeout: float = 10.0) -> Dict[str, Any]:
+    """One-shot profile pull: ``{"role", "endpoint", "t_reply_ns",
+    "profile": <SamplingProfiler.report()>}`` from any serving process
+    (primary or replica), slot-free. The report is empty-but-valid when
+    the remote runs without ``profile_continuous``."""
+    return control_probe(endpoint, MsgType.Control_Profile,
+                         MsgType.Control_Reply_Profile,
+                         timeout=timeout, what="profile")
+
+
 def fetch_stats(endpoint: str, timeout: float = 10.0) -> StatsSnapshot:
     """One-shot live stats RPC: the server's dashboard as a
     :class:`StatsSnapshot` (histograms rebuilt from their bucket arrays,
@@ -1079,6 +1099,66 @@ class RemoteChannel:
 
     def post(self, table_id: int, msg_type: MsgType) -> None:
         self._client._send(table_id, msg_type, None, next_msg_id(), None)
+
+
+class DeadlineMinter:
+    """Mints the absolute monotonic deadline stamped on every correlated
+    Get/Add from the ``request_deadline_seconds`` budget.
+
+    With ``deadline_tighten_ratio`` > 0 the minted budget tracks the SLO
+    burn engine: while any objective fires, each mint shrinks the
+    effective budget geometrically (``_STEP`` per mint) toward the floor
+    ``ratio x budget`` — backlog age follows the error budget instead of
+    queueing 30-second hopes behind a burning fleet — and when the burn
+    clears, mints recover geometrically back to the full budget. Both
+    transitions are flight-recorded (``deadline_tighten`` /
+    ``deadline_recovered``), every tightened mint counts
+    ``DEADLINE_TIGHTENED``, and the live scale is the ``DEADLINE_SCALE``
+    gauge.
+
+    With ``ratio <= 0`` (the default) ``mint()`` evaluates exactly the
+    legacy expression — bit-identical minting, no metrics touched."""
+
+    _STEP = 0.7  # geometric per-mint step toward the floor (and back)
+
+    def __init__(self, budget: float, ratio: float = 0.0,
+                 burn: Optional[Callable[[], bool]] = None) -> None:
+        self.budget = float(budget)
+        self.ratio = min(1.0, float(ratio))
+        self.scale = 1.0
+        # test seam; None = probe the process-global SLO engine
+        self._burn = burn
+
+    def _burning(self) -> bool:
+        if self._burn is not None:
+            return bool(self._burn())
+        import multiverso_tpu_torch as mvt
+        engine = mvt.slo_engine()
+        return bool(engine is not None and engine.firing())
+
+    def mint(self) -> float:
+        """The absolute monotonic deadline for one request (0.0 =
+        no deadline)."""
+        if self.ratio <= 0 or self.budget <= 0:
+            return (time.monotonic() + self.budget
+                    if self.budget > 0 else 0.0)
+        scale = self.scale
+        if self._burning():
+            tightened = max(self.ratio, scale * self._STEP)
+            if scale >= 1.0 and tightened < 1.0:
+                flight_dump("deadline_tighten", budget=self.budget,
+                            floor=self.ratio, scale=tightened)
+            scale = tightened
+        elif scale < 1.0:
+            scale = min(1.0, scale / self._STEP)
+            if scale >= 1.0:
+                flight_dump("deadline_recovered", budget=self.budget)
+        if scale < 1.0:
+            count("DEADLINE_TIGHTENED")
+        if scale != self.scale:
+            self.scale = scale
+            gauge_set("DEADLINE_SCALE", scale)
+        return time.monotonic() + self.budget * scale
 
 
 class _Inflight:
@@ -1144,6 +1224,9 @@ class RemoteClient:
         # Defaults leave all three inert.
         self._deadline_budget = float(
             config.get_flag("request_deadline_seconds"))
+        self._minter = DeadlineMinter(
+            self._deadline_budget,
+            float(config.get_flag("deadline_tighten_ratio")))
         self._retry_budget = RetryBudget.from_flags()
         self._breaker = CircuitBreaker.from_flags()
         # set BEFORE the pump starts (the pump observes reply watermarks
@@ -1302,8 +1385,7 @@ class RemoteClient:
                                                    MsgType.Request_Add,
                                                    MsgType.Request_Query):
             if deadline is None:
-                deadline = (time.monotonic() + self._deadline_budget
-                            if self._deadline_budget > 0 else 0.0)
+                deadline = self._minter.mint()
             if deadline > 0 and deadline <= time.monotonic():
                 # the caller's budget is already gone: spending a round
                 # trip to learn that would be the overload amplifier this

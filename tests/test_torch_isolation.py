@@ -21,7 +21,9 @@ PORT_FILES = sorted((REPO / "multiverso_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "rows_variants.py", REPO / "asgd_probe.py",
     REPO / "tests" / "torch_remote_child.py",
     REPO / "tests" / "torch_durable_primary_child.py"]
-EXAMPLES = ("resnet_asgd.py", "torch_asgd.py", "asgd_param_manager.py")
+EXAMPLES = ("resnet_asgd.py", "torch_asgd.py", "asgd_param_manager.py",
+            "lda_topics.py", "word2vec_train.py", "logreg_train.py",
+            "ftrl_ctr.py", "word2vec_query.py", "addition_rnn.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -82,7 +84,14 @@ def test_import_pulls_in_no_jax():
             "multiverso_tpu_torch.shard.router",
             "multiverso_tpu_torch.shard.group",
             "multiverso_tpu_torch.shard.reshard",
-            "multiverso_tpu_torch.shard._child"} <= set(loaded)
+            "multiverso_tpu_torch.shard._child",
+            "multiverso_tpu_torch.models.lda",
+            "multiverso_tpu_torch.obs.logger",
+            "multiverso_tpu_torch.obs.collector",
+            "multiverso_tpu_torch.obs.critpath",
+            "multiverso_tpu_torch.obs.chargeback",
+            "multiverso_tpu_torch.obs.slo",
+            "multiverso_tpu_torch.fault.lockcheck"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
