@@ -244,9 +244,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (purity > 0.8), and that case on the card against the CPU from the
    same numpy draws for 3 sweeps: equal assignments except at counted
    near-ties.
-18. The run's seconds, one JSON line listing every kernel (with its
-   launches in the shard processes and over phase 17), then the last
-   line ``{"ok": true, "device": {...}}``.
+18. The self-driving control plane. Leg 1: the fleet autopilot
+   (``mvt.autopilot(group, interval=0, recorder=...)``, ticked by hand)
+   over configuration 10's fleet: phase 16's three tables at full width
+   on 2 durable shard processes, one warm-up Add across both shards, then
+   2 writer threads adding 256 distinct rows an Add, zipf(1.1) by rank
+   over shard 0's range, integer deltas in [0, 5). Tick 1, once at least
+   64 Adds acknowledged in the window reached shard 0 (no fixed sleep):
+   a split of shard 0 through the migration coordinator while the
+   writers go on (3 shards, layout v2). Tick 2, the writers stopped and
+   read hedges counted: a read replica added, caught up to its primary's
+   watermark, replica-preferred Gets equal to the mirror. Tick 3: the
+   replica flips a row of its table on the card
+   (``fault.inject.corrupt_table_row`` through ``MV_AUDIT_CORRUPT``), an
+   ``mvt.audit`` check catches it, the loop freezes, a tick while frozen
+   is skipped, ``ack()`` unfreezes it. ``AUTOPILOT_ACTIONS`` 2; the whole
+   table through a fresh client bitwise equal to the writers' mirror; the
+   scatter launched in both primaries and both joiners, the gather in
+   the replica; each tick's sense and decide ms, the split's seconds,
+   transfer and records replayed, the replica's seconds to caught up,
+   the writers' Add p50/p99 before, during and after the split. Leg 2:
+   the knob tuner (``KnobController`` driven by ``tick_now``) on
+   configuration 1's matrix served from this process under
+   ``wal_sync=always`` and ``apply_batch_msgs`` 0, 4 client threads
+   adding integer-valued 1024-row Adds: one pass reading the dispatcher
+   thread's waits (``wal_fsync`` dominant: ``apply_batch_msgs`` 0 to 8),
+   one the whole process's; each pass's step is the first rule its sense
+   matches, its commit or revert agrees with the objective printed
+   beside it, and the flight records replay to the live flag value; the
+   table bitwise equal to the mirror; the scatter launched.
+19. The run's seconds, one JSON line listing every kernel (with its
+   launches in the shard processes and over phases 17 and 18), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
 """
@@ -5377,6 +5406,540 @@ def lda_phase(mvt, rows, device: str, card: str, scratch: str,
     return metrics, launches
 
 
+# -- 18. the self-driving control plane -----------------------------------------
+# Leg 1: the fleet autopilot (``mvt.autopilot``) over configuration 10's
+# fleet: the three tables of phase 16 at full width, range-sharded over two
+# durable shard processes on this card. Two writer threads stream zipf-hot
+# Adds into shard 0's range; the loop, ticked by hand against a recorder
+# sampled on a script clock, splits shard 0, then adds a read replica, then
+# freezes on a divergence the replica plants in its own table on the card.
+# Leg 2: the knob tuner (``KnobController``) stepping a live server in this
+# process under ``wal_sync=always``.
+
+AP_WRITERS = 2
+AP_ADD_ROWS = 256                 # rows an Add, distinct, zipf by rank
+AP_ZIPF_A = 1.1
+AP_MIN_ACKED = 64                 # Adds on shard 0 in the window at tick 1
+AP_AFTER_ADDS = 64                # Adds acknowledged on the split layout
+AP_WINDOW_S = 4.0                 # the loop's window on the script clock
+AP_HEDGES = 40                    # READ_HEDGES in the window before tick 2
+AP_READ_GETS = 16                 # replica-preferred Gets after tick 2
+AP_CORRUPT_ROW = 7                # the replica flips this row (zipf-hot)
+AP_WORKERS = AP_WRITERS + 3       # + the replica reader, the final client
+TUNE_CLIENTS = 4
+TUNE_TICK_S = 2.0                 # sample period = the tuner's window
+TUNE_VERIFY_TICKS = 2
+TUNE_MAX_TICKS = 6                # a pass's ticks up to its verdict
+
+
+def zipf_rows(rng, n: int, span: int, a: float = AP_ZIPF_A) -> np.ndarray:
+    """``n`` distinct rows of ``[0, span)`` drawn zipf(a) by rank without
+    replacement: draws past the span are dropped, a repeat keeps the place
+    of its first draw."""
+    picked = np.empty(0, np.int64)
+    while picked.size < n:
+        draw = rng.zipf(a, 4 * n) - 1
+        draw = np.concatenate([picked, draw[draw < span]])
+        _, first = np.unique(draw, return_index=True)
+        picked = draw[np.sort(first)]
+    return picked[:n].astype(np.int32)
+
+
+def time_calls(obj, names, sink: dict) -> None:
+    """Wrap ``obj``'s methods ``names``: each call's ms lands in ``sink``
+    under the method's name (the last call wins)."""
+    for name in names:
+        fn = getattr(obj, name)
+
+        def timed(*args, _fn=fn, _name=name, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                sink[_name] = (time.perf_counter() - t0) * 1e3
+        setattr(obj, name, timed)
+
+
+def wait_until(cond, what: str, errors: list, timeout: float = CLIENT_S):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if errors:
+            raise errors[0]
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{what} after {timeout} s")
+        time.sleep(0.01)
+
+
+def autopilot_leg(mvt, device: str, card: str, scratch: str, sz: dict,
+                  seed: int) -> tuple:
+    """Leg 1 (the section's comment). Returns (metrics, the group's
+    row-kernel launches by process role)."""
+    from multiverso_tpu_torch.config import FLAGS
+    from multiverso_tpu_torch.dashboard import Dashboard, count
+    from multiverso_tpu_torch.obs.timeseries import TimeSeriesRecorder
+    from multiverso_tpu_torch.runtime.remote import (fetch_stats,
+                                                     fetch_watermark)
+    R, C, B = sz["num_row"], sz["num_col"], sz["ap_rows"]
+    span = R // SHARDS                    # shard 0's range
+    flight = os.path.join(scratch, "autopilot_flight.jsonl")
+    flags = dict(autopilot_hysteresis_ticks=1,
+                 autopilot_window_seconds=AP_WINDOW_S,
+                 autopilot_hedge_rate=1.0,
+                 autopilot_scaledown_qps=0.0,   # keep the new replica
+                 reshard_cold_qps=0.0,          # no merges in this leg
+                 reshard_min_qps=1.0, reshard_hot_ratio=2.0,
+                 read_staleness_records=1 << 30,
+                 flight_recorder_path=flight)
+    for name, value in flags.items():
+        FLAGS.set(name, value)
+    base = {n: Dashboard.counter_value(n) for n in (
+        "AUTOPILOT_ACTIONS", "AUTOPILOT_FROZEN_SKIPS", "AUTOPILOT_FREEZES",
+        "AUTOPILOT_ACKS", "AUDIT_DIVERGENCE", "AUDIT_RUNS",
+        "READS_VIA_REPLICA")}
+    out, ticks = {}, []
+    t0 = time.perf_counter()
+    group = mvt.serve_sharded(
+        shard_specs(R, C), shards=SHARDS, durable=True, device=device,
+        base_dir=os.path.join(scratch, "ap"),
+        flags=dict(SHARD_GROUP_FLAGS, remote_workers=AP_WORKERS))
+    out["group_start_s"] = time.perf_counter() - t0
+    clients, stop, threads = [], threading.Event(), []
+    try:
+        clients = [group.connect() for _ in range(AP_WRITERS)]
+        mirror = np.zeros((R, C), np.float32)
+        # one Add across both shards before the window opens, so every
+        # primary has applied an Add
+        rng = np.random.default_rng([seed, 0])
+        warm = np.sort(rng.choice(R, B, replace=False)).astype(np.int32)
+        wvals = rng.integers(0, 5, (B, C)).astype(np.float32)
+        clients[0].table(0).add(wvals, row_ids=warm)
+        mirror[warm] += wvals
+
+        recorder = TimeSeriesRecorder(interval=3600.0, samples=16)
+        pilot = mvt.autopilot(group, interval=0, recorder=recorder)
+        ms = {}
+        time_calls(pilot.sensors, ("read",), ms)
+        time_calls(pilot.policy, ("decide",), ms)
+        coord = pilot.actuators.coordinator
+        plans, split = [], coord.split
+
+        def split_and_keep(shard, *args, **kwargs):
+            plans.append(split(shard, *args, **kwargs))
+            return plans[-1]
+        coord.split = split_and_keep
+
+        def tick(now: float) -> dict:
+            ms.clear()
+            t = time.perf_counter()
+            record = pilot.tick_now(now=now)
+            ticks.append({"now": now, "action": record["action"],
+                          "tick_ms": (time.perf_counter() - t) * 1e3,
+                          "sense_ms": ms.get("read"),
+                          "decide_ms": ms.get("decide")})
+            return record
+
+        lock, errors, acked, lat = threading.Lock(), [], [0], []
+
+        def writer(w: int) -> None:
+            mat = clients[w].table(0)
+            wrng = np.random.default_rng([seed, w + 1])
+            try:
+                while not stop.is_set():
+                    ids = zipf_rows(wrng, B, span)
+                    vals = wrng.integers(0, 5, (B, C)).astype(np.float32)
+                    t = time.perf_counter()
+                    mat.add(vals, row_ids=ids)
+                    dt = time.perf_counter() - t
+                    with lock:
+                        mirror[ids] += vals
+                        acked[0] += 1
+                        lat.append((t, dt))
+            except BaseException as err:  # reported below, never passed over
+                errors.append(err)
+
+        recorder.sample_now(t=100.0)
+        threads = [threading.Thread(target=writer, args=(w,), daemon=True)
+                   for w in range(AP_WRITERS)]
+        for t in threads:
+            t.start()
+        # tick 1 waits for acknowledged Adds, not for a fixed time
+        wait_until(lambda: acked[0] >= AP_MIN_ACKED, "too few Adds", errors)
+        recorder.sample_now(t=100.0 + AP_WINDOW_S)
+        in_window = [recorder.window_histogram(f"ROUTER_SHARD{k}_SECONDS",
+                                               AP_WINDOW_S)
+                     for k in range(SHARDS)]
+        out["window_adds_by_shard"] = [0 if h is None else int(h.count)
+                                       for h in in_window]
+        if out["window_adds_by_shard"][0] < AP_MIN_ACKED:
+            raise AssertionError(f"tick 1: {out['window_adds_by_shard']} "
+                                 f"Adds in the window, want >= "
+                                 f"{AP_MIN_ACKED} on shard 0")
+        t_split = time.perf_counter()
+        rec1 = tick(100.0 + AP_WINDOW_S)
+        t_split_end = time.perf_counter()
+        if rec1["action"] != "split" or rec1["decision"]["shard"] != 0 \
+                or not rec1["outcome"]["ok"]:
+            raise AssertionError(f"tick 1: {json.dumps(rec1)[:2000]}")
+        lv = group.layout.manifest["layout_version"]
+        if group.num_shards != 3 or lv != 2:
+            raise AssertionError(f"tick 1: {group.num_shards} shards, "
+                                 f"layout v{lv}; want 3 and v2")
+        plan = plans[0]
+        joiners = []
+        for j in plan.joiners:
+            path = os.path.join(group.base_dir,
+                                f"join-v{plan.new_version}.{j['shard']}.status")
+            with open(path) as f:
+                st = json.load(f)
+            joiners.append(st)
+        during = acked[0]
+        wait_until(lambda: acked[0] >= during + AP_AFTER_ADDS,
+                   "too few Adds after the split", errors)
+        stop.set()
+        for t in threads:
+            t.join(timeout=CLIENT_S)
+        if errors:
+            raise errors[0]
+        if any(t.is_alive() for t in threads):
+            raise TimeoutError("leg 1: a writer did not stop")
+        out["split"] = {
+            "rate": rec1["decision"]["params"]["rate"],
+            "seconds": rec1["outcome"]["seconds"],
+            "start_to_cutover_s": plan.timings["cutover_s"],
+            "start_to_serving_s": plan.timings["serving_s"],
+            "transfer_mb": sum(j["transfer_bytes"] for j in joiners) / 1e6,
+            "transfer_s": max(j["transfer_s"] for j in joiners),
+            "records_replayed": sum(j["records_applied"] for j in joiners),
+            "adds_during": during - AP_MIN_ACKED}
+
+        def add_ms(sel):
+            xs = [dt * 1e3 for t, dt in lat if sel(t)]
+            return dict(percentiles(xs), n=len(xs)) if xs else None
+        out["add_ms"] = {
+            "before": add_ms(lambda t: t < t_split),
+            "during": add_ms(lambda t: t_split <= t < t_split_end),
+            "after": add_ms(lambda t: t >= t_split_end)}
+        out["adds_acked"] = acked[0] + 1
+
+        # tick 2: read-tier pressure; the replica it spawns is armed to
+        # flip a row of its table once it has synced
+        recorder.sample_now(t=108.0)
+        count("READ_HEDGES", AP_HEDGES)
+        recorder.sample_now(t=112.0)
+        os.environ["MV_AUDIT_CORRUPT"] = f"0:{AP_CORRUPT_ROW}:0"
+        try:
+            t = time.perf_counter()
+            rec2 = tick(112.0)
+        finally:
+            os.environ.pop("MV_AUDIT_CORRUPT", None)
+        if rec2["action"] != "add_replica" or not rec2["outcome"]["ok"]:
+            raise AssertionError(f"tick 2: {json.dumps(rec2)[:2000]}")
+        shard = rec2["decision"]["shard"]
+        replica = rec2["outcome"]["detail"]["endpoint"]
+        if group.replica_endpoints[shard] != [replica]:
+            raise AssertionError(f"tick 2: shard {shard} replicas "
+                                 f"{group.replica_endpoints[shard]}")
+        primary_wm = fetch_watermark(group.endpoints[shard])["watermark"]
+        wait_until(lambda: fetch_watermark(replica)["watermark"]
+                   >= primary_wm, "the replica never caught up", [])
+        out["replica"] = {"shard": shard, "primary_watermark": primary_wm,
+                          "start_to_serving_s": rec2["outcome"]["seconds"],
+                          "start_to_caught_up_s": time.perf_counter() - t}
+        reader = group.connect(read_preference="replica")
+        clients.append(reader)
+        lo = int(group.layout.manifest["tables"][0]["partitioner"]
+                 ["bounds"][shard])
+        ids = np.arange(lo + AP_CORRUPT_ROW + 1,
+                        lo + AP_CORRUPT_ROW + 1 + B, dtype=np.int32)
+        for _ in range(AP_READ_GETS):
+            got = reader.table(0).get(row_ids=ids)
+            if not np.array_equal(got, mirror[ids]):
+                raise AssertionError("leg 1: a replica Get != the mirror")
+        out["replica"]["reads_via_replica"] = (
+            Dashboard.counter_value("READS_VIA_REPLICA")
+            - base["READS_VIA_REPLICA"])
+
+        # tick 3: an audit finds the planted row; the loop freezes
+        auditor = mvt.audit(group, interval=0)
+
+        def caught() -> bool:
+            auditor.check()
+            return (Dashboard.counter_value("AUDIT_DIVERGENCE")
+                    > base["AUDIT_DIVERGENCE"])
+        t = time.perf_counter()
+        try:
+            wait_until(caught, "the audit never caught the planted row", [],
+                       timeout=60)
+        except TimeoutError as err:
+            raise TimeoutError(f"{err}; the last audit report: "
+                               f"{json.dumps(auditor.last_report)[:2000]}"
+                               ) from None
+        out["audit_s"] = time.perf_counter() - t
+        # the replica's fresh state transfers since it joined (each loads
+        # the primary's bytes; the drill re-plants its flip after each)
+        rstats = fetch_stats(replica)
+        out["replica"]["resyncs"] = {n: rstats.counter(n) for n in (
+            "STANDBY_FALSE_LEASE_EXPIRY", "REPLICA_GAP_RESYNCS",
+            "FAULT_INJECTED_STATE_CORRUPT")}
+        frozen = [tick(120.0)["action"], tick(121.0)["action"]]
+        pilot.ack("chip_smoke")
+        after_ack = tick(122.0)["action"]
+        if frozen != ["frozen", "frozen"] or after_ack == "frozen" \
+                or pilot.interlock.frozen:
+            raise AssertionError(f"tick 3: {frozen}, then {after_ack}")
+        counts = {n: Dashboard.counter_value(n) - base[n] for n in base}
+        if counts["AUTOPILOT_ACTIONS"] != 2 or \
+                counts["AUTOPILOT_FROZEN_SKIPS"] != 2:
+            raise AssertionError(f"leg 1 counters: {counts}")
+        out["counters"] = counts
+        out["after_ack"] = after_ack
+
+        t = time.perf_counter()
+        final = group.connect()
+        clients.append(final)
+        if not np.array_equal(final.table(0).get(), mirror):
+            raise AssertionError("leg 1: the table != the writers' mirror "
+                                 "(an acknowledged Add was lost)")
+        out["final_get_s"] = time.perf_counter() - t
+        with open(flight) as f:
+            dumps = [json.loads(x) for x in f if '"kind": "event"' in x]
+        out["flight_dumps"] = [e["reason"] for e in dumps
+                               if e["reason"].startswith("autopilot_")]
+        pilot.stop()
+    except BaseException:
+        stop.set()
+        print(group_logs(group), flush=True)
+        raise
+    finally:
+        for c in clients:
+            c.close()
+        group.stop()
+        for name in flags:
+            FLAGS.reset(name)
+    out["ticks"] = ticks
+    return out, group.kernel_launches()
+
+
+def check_autopilot_launches(launches: dict, on_card: bool) -> dict:
+    """Leg 1's kernel readout: the scatter in every primary and joiner,
+    the gather in the replica (on the card; a CPU group runs the plain
+    versions, which launch nothing). Returns the counts by role."""
+    joiners = [r for r in launches if r.startswith("join-")]
+    replicas = [r for r in launches if r.startswith("replica")]
+    if len(joiners) != 2 or len(replicas) != 1:
+        raise AssertionError(f"leg 1: roles {sorted(launches)}")
+    for role in ["shard0", "shard1"] + joiners if on_card else ():
+        if launches[role]["scatter_add_rows"] <= 0:
+            raise AssertionError(f"scatter_add_rows: no launch in {role}")
+    if on_card and launches[replicas[0]]["gather_rows"] <= 0:
+        raise AssertionError(f"gather_rows: no launch in {replicas[0]}")
+    return {role: {k: c[k] for k in ("scatter_add_rows", "gather_rows")}
+            for role, c in launches.items()}
+
+
+class ThreadWaits:
+    """A profiler view of one thread: the wait seconds the sampling
+    profiler charged to the threads named ``name`` (the dispatcher's,
+    where ``apply_batch_msgs`` acts)."""
+
+    def __init__(self, profiler, name: str) -> None:
+        self.profiler, self.name = profiler, name
+
+    def wait_seconds(self) -> dict:
+        info = self.profiler.report(top_stacks=0)["threads"].get(self.name)
+        return {site: s for site, s in (info or {}).get("waits", {}).items()
+                if not site.startswith("blocked:")}
+
+
+def tune_pass(ctl, recorder, clock: list) -> list:
+    """Tick ``ctl`` every ``TUNE_TICK_S`` seconds (the recorder sampled on
+    the script clock just before) up to its first verdict."""
+    records = []
+    for _ in range(TUNE_MAX_TICKS):
+        time.sleep(TUNE_TICK_S)
+        clock[0] += TUNE_TICK_S
+        recorder.sample_now(t=clock[0])
+        records.append(ctl.tick_now(now=clock[0]))
+        if records[-1]["action"] in ("commit", "revert"):
+            break
+    return records
+
+
+def tuner_leg(mvt, rows, device: str, card: str, scratch: str, sz: dict,
+              seed: int) -> tuple:
+    """Leg 2 (the section's comment): configuration 1's matrix served
+    from this process with ``wal_sync=always`` and ``apply_batch_msgs``
+    0, 4 client threads here (so the objective's latency histogram is
+    this process's) sending integer-valued 1024-row Adds. Two tuner
+    passes: the first reads the dispatcher thread's waits, the second
+    the whole process's. Returns (metrics, row-kernel launches)."""
+    from multiverso_tpu_torch.config import FLAGS
+    from multiverso_tpu_torch.dashboard import Dashboard
+    from multiverso_tpu_torch.obs.profiler import PROFILER
+    from multiverso_tpu_torch.obs.timeseries import TimeSeriesRecorder
+    from multiverso_tpu_torch.tune import KnobController, TuneSensors
+    from multiverso_tpu_torch.tune.rules import (actionable_dominant,
+                                                 default_rules)
+    R, C, B = sz["num_row"], sz["num_col"], sz["batch"]
+    flight = os.path.join(scratch, "tune_flight.jsonl")
+    mvt.init(device=device, remote_workers=TUNE_CLIENTS, heartbeat_seconds=0,
+             wal_dir=os.path.join(scratch, "tune_wal"), wal_sync="always",
+             apply_batch_msgs=0, profile_continuous=True,
+             flight_recorder_path=flight)
+    out = {}
+    clients, threads, stop, errors = [], [], threading.Event(), []
+    try:
+        table = mvt.create_table("matrix", num_row=R, num_col=C)
+        ep = mvt.serve("127.0.0.1:0")
+        zero_launches(rows)
+        base = {n: Dashboard.counter_value(n) for n in (
+            "TUNE_STEPS", "TUNE_COMMITS", "TUNE_REVERTS", "TUNE_TICKS")}
+        mirror = np.zeros((R, C), np.float32)
+        lock, sent = threading.Lock(), [0]
+        clients = [mvt.remote_connect(ep) for _ in range(TUNE_CLIENTS)]
+
+        def client(i: int) -> None:
+            t = clients[i].table(table.table_id)
+            rng = np.random.default_rng([seed, i])
+            try:
+                while not stop.is_set():
+                    ids = rng.integers(0, R, B).astype(np.int32)
+                    vals = int_rows(rng, (B, C))
+                    t.add(vals, row_ids=ids)
+                    with lock:
+                        np.add.at(mirror, ids, vals)
+                        sent[0] += 1
+            except BaseException as err:  # reported below
+                errors.append(err)
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(TUNE_CLIENTS)]
+        for t in threads:
+            t.start()
+        wait_until(lambda: sent[0] >= 4 * TUNE_CLIENTS, "no Adds", errors)
+        recorder = TimeSeriesRecorder(interval=3600.0, samples=64)
+        clock = [0.0]
+        recorder.sample_now(t=clock[0])
+        rules = default_rules()
+        for view in ("dispatcher", "process"):
+            profiler = (PROFILER if view == "process"
+                        else ThreadWaits(PROFILER, "mv-server"))
+            sensors = TuneSensors(recorder=recorder, profiler=profiler,
+                                  window=TUNE_TICK_S)
+            senses = []
+            read = sensors.read
+
+            def keep(now=None, _read=read, _senses=senses):
+                _senses.append(_read(now=now))
+                return _senses[-1]
+            sensors.read(now=clock[0])          # the window starts here
+            sensors.read = keep
+            ctl = KnobController(sensors=sensors, rules=rules, interval=0,
+                                 hysteresis=1,
+                                 verify_ticks=TUNE_VERIFY_TICKS,
+                                 cooldown=60.0, regress_pct=5.0)
+            records = tune_pass(ctl, recorder, clock)
+            steps = [r for r in records if r["action"] == "step"]
+            if len(steps) != 1 or records[-1]["action"] not in (
+                    "commit", "revert"):
+                raise AssertionError(f"tuner ({view}): "
+                                     f"{[r['action'] for r in records]}")
+            step = steps[0]["step"]
+            sense = senses[records.index(steps[0])]
+            want_rule = next(r.name for r in rules if r.predicate(sense))
+            if step["rule"] != want_rule:
+                raise AssertionError(f"tuner ({view}): stepped "
+                                     f"{step['rule']}, sensed {want_rule}")
+            if view == "dispatcher" and (step["flag"], step["old"],
+                                         step["new"]) != (
+                    "apply_batch_msgs", 0, 8):
+                raise AssertionError(f"tuner (dispatcher): {step}")
+            verdict = records[-1]["verdict"]
+            regressed = (verdict["baseline"] > 0
+                         and verdict["objective"] < verdict["regress_bar"])
+            if records[-1]["action"] != ("revert" if regressed else "commit"):
+                raise AssertionError(f"tuner ({view}): {records[-1]}")
+            live = FLAGS.get(step["flag"])
+            value = step["old"]
+            with open(flight) as f:
+                for line in f:
+                    e = json.loads(line)
+                    if e.get("kind") == "event" and \
+                            e["reason"].startswith("tune_") and \
+                            e.get("flag") == step["flag"]:
+                        value = e["old"] if e["reason"] == "tune_revert" \
+                            else e["new"]
+            if value != live or live != (step["old"] if regressed
+                                         else step["new"]):
+                raise AssertionError(f"tuner ({view}): flight records give "
+                                     f"{value}, the flag is {live}")
+            out[view] = {
+                "rule": step["rule"], "flag": step["flag"],
+                "old": step["old"], "new": step["new"],
+                "verdict": records[-1]["action"], "value_at_end": live,
+                "dominant": actionable_dominant(sense),
+                "wait_s": sense.as_dict()["wait"],
+                "objective_before": verdict["baseline"],
+                "objective_after": verdict["objective"],
+                "regress_bar": verdict["regress_bar"],
+                "p99_ms_before": sense.p99 * 1e3,
+                "p99_ms_after": senses[-1].p99 * 1e3,
+                "adds_per_s_before": sense.throughput,
+                "adds_per_s_after": senses[-1].throughput,
+                "ticks": [r["action"] for r in records]}
+        stop.set()
+        for t in threads:
+            t.join(timeout=CLIENT_S)
+        if errors:
+            raise errors[0]
+        out["counters"] = {n: Dashboard.counter_value(n) - base[n]
+                           for n in base}
+        out["knobs_at_end"] = {k: FLAGS.get(k) for k in (
+            "apply_batch_msgs", "wire_coalesce_frames",
+            "wire_coalesce_bytes")}
+        out["adds"] = sent[0]
+        launches = launch_counts(rows)
+        if device == "cuda" and launches["scatter_add_rows"] <= 0:
+            raise AssertionError("scatter_add_rows: no launch in leg 2")
+        if not np.array_equal(np.asarray(table.get(), np.float32), mirror):
+            raise AssertionError("leg 2: the table != the clients' mirror")
+    finally:
+        stop.set()
+        for c in clients:
+            c.close()
+        stop_runtime(mvt)
+    return out, launches
+
+
+def control_phase(mvt, rows, device: str, card: str, scratch: str,
+                  sizes=None) -> tuple:
+    """Phase 18: the fleet autopilot over configuration 10's fleet (leg
+    1) and the knob tuner on a live server (leg 2). Returns (metrics,
+    launches by leg and process role). ``sizes`` shrinks the legs for a
+    CPU rehearsal."""
+    sz = dict(num_row=ROWS, num_col=COLS, batch=BATCH, ap_rows=AP_ADD_ROWS)
+    sz.update(sizes or {})
+    t_phase = time.perf_counter()
+    metrics, launches = {}, {}
+    t0 = time.perf_counter()
+    metrics["1_autopilot"], group_launches = autopilot_leg(
+        mvt, device, card, scratch, sz, 18)
+    launches["1_autopilot"] = check_autopilot_launches(
+        group_launches, device == "cuda")
+    metrics["1_autopilot"]["leg_s"] = time.perf_counter() - t0
+    print(f"autopilot (leg 1) on {card}: {json.dumps(metrics['1_autopilot'])}"
+          f"; row-kernel launches by role: "
+          f"{json.dumps(launches['1_autopilot'])}", flush=True)
+    t0 = time.perf_counter()
+    metrics["2_tuner"], launches["2_tuner"] = tuner_leg(
+        mvt, rows, device, card, scratch, sz, 19)
+    metrics["2_tuner"]["leg_s"] = time.perf_counter() - t0
+    print(f"knob tuner (leg 2) on {card}: {json.dumps(metrics['2_tuner'])}",
+          flush=True)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    return metrics, launches
+
+
 KERNELS = {
     "scatter_add_rows":"multiverso_tpu/ops/pallas_rows.py:172",
     "gather_rows": "multiverso_tpu/ops/pallas_rows.py:107",
@@ -5590,7 +6153,14 @@ def smoke(args, scratch: str) -> int:
         if n <= 0:
             raise AssertionError(f"{k}: no launch on the LDA path")
 
-    # 18. the kernel line, then the verdict
+    # 18. the self-driving control plane: the autopilot over configuration
+    # 10's fleet, the knob tuner on a live server
+    control, control_launches = control_phase(mvt, rows, "cuda", card,
+                                              scratch)
+    print(f"control plane phase: {control['phase_s']:.1f} s ({card})",
+          flush=True)
+
+    # 19. the kernel line, then the verdict
     table = []
     for k, where in KERNELS.items():
         r = results[k]
@@ -5610,7 +6180,14 @@ def smoke(args, scratch: str) -> int:
                       # phase 16: launches in the shard processes, by role
                       "shard_process_launches": {
                           role: c.get(k, 0)
-                          for role, c in shard_counts.items()}})
+                          for role, c in shard_counts.items()},
+                      # phase 18: leg 1's shard processes by role, leg 2's
+                      # server (this process)
+                      "control_plane_launches": {
+                          **{f"autopilot/{role}": c.get(k, 0) for role, c
+                             in control_launches["1_autopilot"].items()},
+                          "tuner/server": control_launches["2_tuner"].get(
+                              k, 0)}})
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": table}))

@@ -32,6 +32,8 @@ Public surface (MV_* parity, the part ported so far):
                                    (write-ahead log, restart recovery,
                                     failover and read replicas)
     audit                          (primary/replica digest comparison)
+    autopilot / autotune           (the fleet control loop over a shard
+                                    group; the perf-knob tuner)
     serve_sharded / shard_connect / reshard
                                    (shard groups: one serving process per
                                     shard, a routing client, live
@@ -77,8 +79,8 @@ files load in either package.
 
 ``init`` also starts what the observability flags ask for: periodic JSONL
 snapshots (``metrics_path``), the time-series sampler, the sampling
-profiler (``profile_continuous``) and the SLO engine (``slo_spec``);
-``shutdown`` stops them.
+profiler (``profile_continuous``), the SLO engine (``slo_spec``) and the
+knob tuner (``autotune``); ``shutdown`` stops them.
 
 ``init`` puts the tables on ``cuda`` unless the caller asks for the CPU
 (``init(device="cpu")`` or ``-device=cpu``); it raises when CUDA is absent
@@ -121,12 +123,14 @@ def init(argv: Optional[Sequence[str]] = None, sync: Optional[bool] = None,
         raise
     _start_metrics_logger()
     _start_observability()
+    _start_autotune()
     return started
 
 
 def shutdown(finalize_net: bool = True) -> None:
     """Stop the runtime and forget its named programs: a registered program
     closes over the tables it was built for."""
+    _stop_autotune()
     Zoo.instance().stop(finalize_net)
     clear_programs()
     _stop_profiling()
@@ -191,6 +195,38 @@ def _stop_observability() -> None:
     if _slo_engine is not None:
         _slo_engine.stop()
         _slo_engine = None
+
+
+_autotuner = None
+
+
+def _start_autotune() -> None:
+    """Start the self-tuning KnobController (tune/) when the
+    ``autotune`` flag is set; idempotent across repeated init(). With
+    the flag off NOTHING is built — no thread, no TUNE_* metrics, the
+    runtime stays bit-identical to an untuned build."""
+    global _autotuner
+    if not bool(get_flag("autotune")) or _autotuner is not None:
+        return
+    from multiverso_tpu_torch.tune import KnobController
+    _autotuner = KnobController()
+    if _autotuner.interval > 0:
+        _autotuner.start()
+
+
+def _stop_autotune() -> None:
+    global _autotuner
+    if _autotuner is not None:
+        _autotuner.stop()
+        _autotuner = None
+
+
+def autotune():
+    """The flag-started self-tuning controller
+    (:class:`~multiverso_tpu_torch.tune.KnobController`) — None unless
+    ``autotune`` was set at init. Tests and drills may also build their
+    own ``KnobController`` directly and drive ``tick_now()``."""
+    return _autotuner
 
 
 def slo_engine():
@@ -671,6 +707,30 @@ def audit(fleet, interval: Optional[float] = None,
     if auditor.interval > 0:
         auditor.start()
     return auditor
+
+
+def autopilot(group, interval: Optional[float] = None,
+              auditor: Any = None, **kwargs: Any):
+    """The fleet autopilot (``autopilot/``): a periodic control loop over
+    a live :class:`~multiverso_tpu_torch.shard.group.ShardGroup` that
+    reads the telemetry plane — per-shard heat, read-tier pressure,
+    replica lag, tier hit rates, the SLO burn engine — and reshapes the
+    fleet through the crash-safe machinery underneath: hot-shard splits
+    and cold-range merges via the MigrationCoordinator (joiners on the
+    group's device), live replica add/remove, tier budget rebalance.
+    Pass the running ``mvt.audit`` auditor as ``auditor``: any
+    ``AUDIT_DIVERGENCE`` freezes the loop until an operator ``.ack()``;
+    every decision (and its rejected alternatives) lands in the flight
+    recorder. Returns an :class:`~multiverso_tpu_torch.autopilot.Autopilot`
+    — already ticking in the background when ``interval`` (or the
+    ``autopilot_interval_seconds`` flag) is > 0; call ``.tick_now()``
+    for deterministic drills, ``.status()`` for the operator view,
+    ``.stop()`` to halt."""
+    # the autopilot PACKAGE shares this name: importing it rebinds the
+    # attribute to the module, which is callable with these exact
+    # semantics (autopilot/__init__.py)
+    import multiverso_tpu_torch.autopilot as _ap
+    return _ap(group, interval=interval, auditor=auditor, **kwargs)
 
 
 # -- sharded serving tier (shard/) -------------------------------------------

@@ -557,6 +557,85 @@ define_double("reshard_cold_qps", 5.0,
               "cold-range detector ceiling: two ADJACENT shards both "
               "below this request rate propose a merge (the inverse of "
               "the split path — an over-split group wastes processes)")
+# Fleet autopilot (multiverso_tpu_torch/autopilot/): the control loop that
+# reads the telemetry plane and reshapes the fleet (docs/autopilot.md).
+define_double("autopilot_interval_seconds", 5.0,
+              "autopilot control-loop tick period; <= 0 disables the "
+              "background thread (tick_now() still works for drills)")
+define_int("autopilot_hysteresis_ticks", 2,
+           "consecutive ticks a condition must hold before the autopilot "
+           "acts on it — one noisy sample must not resize the fleet")
+define_double("autopilot_cooldown_seconds", 60.0,
+              "per-action cooldown after the autopilot executes (or "
+              "fails) an action of that kind; re-deciding inside the "
+              "window is recorded as a rejected alternative")
+define_double("autopilot_window_seconds", 30.0,
+              "observation window the autopilot's sensors read rates "
+              "and per-shard heat over (also the hot-range detector's "
+              "window when the autopilot constructs it)")
+define_int("autopilot_max_replicas", 4,
+           "ceiling on serving read replicas per shard the autopilot "
+           "may scale up to")
+define_int("autopilot_min_replicas", 0,
+           "floor on serving read replicas per shard the autopilot may "
+           "scale down to")
+define_double("autopilot_hedge_rate", 5.0,
+              "read-tier pressure threshold (hedges + refusals + "
+              "primary fallbacks per second): sustained pressure above "
+              "this proposes adding a read replica")
+define_double("autopilot_scaledown_qps", 1.0,
+              "fleet-wide request-rate floor: sustained traffic below "
+              "this proposes removing a read replica (down to "
+              "autopilot_min_replicas)")
+define_double("autopilot_tier_target_hit_rate", 0.90,
+              "tiered-store hot-tier hit-rate target: sustained hit "
+              "rate below this grows the resident budget by "
+              "autopilot_tier_step_bytes (up to autopilot_tier_max_bytes)")
+define_int("autopilot_tier_step_bytes", 16 << 20,
+           "bytes the autopilot grows/shrinks the tier_resident_bytes "
+           "budget by per rebalance action")
+define_int("autopilot_tier_max_bytes", 512 << 20,
+           "ceiling the autopilot may grow tier_resident_bytes to")
+define_bool("autopilot_blue_green", False,
+            "rehearse risky topology changes (split/merge) on an "
+            "mv.clone_fleet canary before executing them live; off, the "
+            "autopilot executes directly through the crash-safe "
+            "MigrationCoordinator path")
+# Self-tuning runtime (multiverso_tpu_torch/tune/): attribution-driven
+# feedback controller that steps the perf knobs above and reverts
+# regressions (docs/autotune.md).
+define_bool("autotune", False,
+            "start the KnobController inside mv.init: a windowed "
+            "sense→propose→step→verify loop that reads the profiler's "
+            "wait sites + the time-series windows, steps ONE bounded perf "
+            "knob at a time (apply_batch_msgs, wire_coalesce_*, "
+            "wire_quant_bits, wire_shm_spin, read_hedge_ms, "
+            "client_cache_bytes, tier_admit_touches) and reverts any step "
+            "whose windowed objective regresses. Off = bit-identical "
+            "runtime (no thread, no TUNE_* metrics)")
+define_double("autotune_interval_seconds", 2.0,
+              "KnobController tick period; <= 0 disables the background "
+              "thread (tick_now() still works for drills and bench legs)")
+define_double("autotune_window_seconds", 10.0,
+              "observation window the tuner's sensors read wait-site "
+              "deltas, rates and latency quantiles over (also the "
+              "objective's measurement window)")
+define_int("autotune_hysteresis_ticks", 2,
+           "consecutive ticks a dominant cost must hold before the tuner "
+           "steps the mapped knob — one noisy sample must not move a flag")
+define_double("autotune_cooldown_seconds", 10.0,
+              "per-knob cooldown after a committed or reverted step; "
+              "re-proposing inside the window is recorded as a rejected "
+              "alternative in the decision trail")
+define_int("autotune_verify_ticks", 2,
+           "ticks the tuner waits after stepping a knob before comparing "
+           "the windowed objective against the pre-step baseline (the "
+           "verify phase; no other knob moves while one is in flight)")
+define_double("autotune_regress_pct", 5.0,
+              "objective regression tolerance: a stepped knob whose "
+              "verify-phase objective lands more than this percent below "
+              "the pre-step baseline is reverted (TUNE_REVERTS) and its "
+              "direction cooled down; within tolerance it commits")
 # Read replicas a shard group runs per shard (shard/group.py).
 define_int("replicas", 0,
            "serving read replicas per shard in a shard group (each tails "

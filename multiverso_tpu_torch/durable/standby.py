@@ -52,7 +52,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -130,6 +130,11 @@ class WarmStandby:
         # applied — release_tail() applies the backlog
         self.hold_tail = threading.Event()
         self._held: List[Message] = []
+        # chaos seam: called inside the serialized block of every state
+        # transfer, right after the load (shard/_child.py's audit drill
+        # re-plants its divergence there, so a resubscribe cannot heal it
+        # between two digests)
+        self.after_transfer: Optional[Callable[[], Any]] = None
         self._awaiting_transfer = False
         # records that arrived while a state transfer was pending: the
         # primary forwards records from the dispatcher thread while the
@@ -347,6 +352,8 @@ class WarmStandby:
             # block, so a read serialized behind us sees them together
             self.applied_watermark = watermark
             self.received_watermark = watermark
+            if self.after_transfer is not None:
+                self.after_transfer()
 
         self._run(run)
         self._held.clear()

@@ -226,12 +226,23 @@ class TcpNet:
         self._accept_thread: Optional[threading.Thread] = None
         self._accepted: list = []
         self._active = False
-        # coalescing caps, read at construction; 0 on either flag =
-        # per-frame sendall
+        # coalescing caps: cached for the drain loop but LIVE through the
+        # config watch seam, so a runtime step (operator or autotuner)
+        # reshapes the next vectored send instead of waiting for a net
+        # rebuild; 0 on either flag = per-frame sendall. The
+        # queue-vs-sendall mode itself stays as constructed — only the
+        # caps of an already-coalescing net move (the mode needs the
+        # queue machinery wired at construction).
         self._coalesce_frames = int(config.get_flag("wire_coalesce_frames"))
         self._coalesce_bytes = int(config.get_flag("wire_coalesce_bytes"))
         self._coalesce = (self._coalesce_frames > 0
                           and self._coalesce_bytes > 0)
+        self._flag_unsubs = [
+            config.FLAGS.on_change("wire_coalesce_frames",
+                                   self._on_coalesce_change),
+            config.FLAGS.on_change("wire_coalesce_bytes",
+                                   self._on_coalesce_change),
+        ]
         # shared-memory transport (runtime/shm.py), negotiated per dialed
         # connection when the flag is on; keyed by the TCP socket that
         # carries the connection's liveness (server side: the accepted
@@ -239,6 +250,12 @@ class TcpNet:
         self._shm_enabled = bool(config.get_flag("wire_shm"))
         self._shm_bytes = int(config.get_flag("wire_shm_bytes"))
         self._shm_channels: Dict[Any, ShmChannel] = {}
+
+    def _on_coalesce_change(self, _name: str, _value) -> None:
+        # caps move live (the drain loop reads them per batch); the
+        # queue-vs-sendall mode stays as constructed
+        self._coalesce_frames = int(config.get_flag("wire_coalesce_frames"))
+        self._coalesce_bytes = int(config.get_flag("wire_coalesce_bytes"))
 
     # -- lifecycle ----------------------------------------------------------
     def bind(self, rank: int, endpoint: str) -> str:
@@ -275,6 +292,9 @@ class TcpNet:
 
     def finalize(self) -> None:
         self._active = False
+        for unsub in getattr(self, "_flag_unsubs", ()):
+            unsub()
+        self._flag_unsubs = []
         # flush queued frames BEFORE tearing connections down: callers
         # that enqueued (deregister, final replies) relied on sendall
         # semantics — give the drain loops a bounded window to empty

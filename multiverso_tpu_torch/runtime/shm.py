@@ -85,6 +85,19 @@ _YIELD = 60
 _SLEEP_BASE = 100e-6
 _SLEEP_MAX = 1e-3
 
+# The spin budget is a live knob (``wire_shm_spin``): the autotuner backs
+# it off toward 0 when shm_ring_spin wait dominates the profile. Updated
+# through the config watch seam — the wait path itself never takes the
+# registry lock.
+_spin_live = [max(0, int(config.get_flag("wire_shm_spin")))]
+
+
+def _on_spin_change(_name: str, value) -> None:
+    _spin_live[0] = max(0, int(value))
+
+
+config.FLAGS.on_change("wire_shm_spin", _on_spin_change)
+
 _counter_lock = threading.Lock()
 _counter = [0]
 
@@ -127,9 +140,10 @@ def make_segment_paths() -> tuple:
     return base + ".c2s", base + ".s2c"
 
 
-def _sleep_for(idle: int, spin: int) -> None:
-    # ``spin`` (the ``wire_shm_spin`` flag, read when the ring is mapped)
-    # moves only the spin edge: yield band width and sleep ramp are fixed
+def _sleep_for(idle: int) -> None:
+    # the ladder keeps its shape under a live spin budget: yield band
+    # width and sleep ramp are unchanged, only the spin edge moves
+    spin = _spin_live[0]
     yield_end = spin + (_YIELD - _SPIN)
     if idle < spin:
         return
@@ -154,7 +168,6 @@ class Ring:
         self._data = self._view[HEADER_SIZE:HEADER_SIZE + self.capacity]
         self.path = path
         self._disposed = False
-        self._spin = max(0, int(config.get_flag("wire_shm_spin")))
 
     # -- construction --------------------------------------------------------
     @classmethod
@@ -258,7 +271,7 @@ class Ring:
                         # reader — marked across the whole idle stretch
                         _prev_wait = mark_wait("shm_ring_spin")
                     idle += 1
-                    _sleep_for(idle, self._spin)
+                    _sleep_for(idle)
                     continue
                 if idle:
                     clear_wait(_prev_wait)
@@ -303,7 +316,7 @@ class Ring:
                         # next frame — the shm analog of net_recv
                         _prev_wait = mark_wait("shm_ring_spin")
                     idle += 1
-                    _sleep_for(idle, self._spin)
+                    _sleep_for(idle)
                     continue
                 if idle:
                     clear_wait(_prev_wait)

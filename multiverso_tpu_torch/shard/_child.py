@@ -37,8 +37,10 @@ serve under a fresh WAL lineage. The blue/green bring-up vehicle
 A replica child honors the ``MV_AUDIT_CORRUPT=<table>:<row>[:<after>]``
 chaos env: once synced and past ``after`` applied records it flips one
 byte of that row IN its applied state — the seeded divergence the fleet
-auditor (obs/audit.py) must catch. Wire-level corruption cannot stage
-this drill: the frame CRC discards a corrupted record before apply.
+auditor (obs/audit.py) must catch — and flips it again after any later
+state transfer (a resubscribe would otherwise heal it). Wire-level
+corruption cannot stage this drill: the frame CRC discards a corrupted
+record before apply.
 
 ``--join <spec.json>`` runs a live-migration JOINER (shard/reshard.py):
 build this member's tables at their NEW-layout spans, absorb a quiesced
@@ -180,7 +182,11 @@ def _arm_audit_corruption(standby, spec: str) -> None:
     chaos drill: once this replica is synced and has applied ``after``
     records (default 1), flip one byte of the named row IN its applied
     state, under the replay-serialized seam. The fleet auditor must
-    catch the divergence within one audit interval."""
+    catch the divergence within one audit interval. A fresh state
+    transfer (the resubscribe after a lease stall or a replication gap)
+    loads the primary's bytes over the flip, so the drill re-plants it
+    inside the same serialized block (``WarmStandby.after_transfer``):
+    no digest can read the healed state in between."""
     import threading
     from multiverso_tpu_torch import log
     from multiverso_tpu_torch.fault.inject import corrupt_table_row
@@ -199,7 +205,11 @@ def _arm_audit_corruption(standby, spec: str) -> None:
             log.error("audit-corrupt drill: no table %d on this replica",
                       table_id)
             return
-        standby._run(lambda: corrupt_table_row(table, row))
+
+        def plant() -> None:
+            corrupt_table_row(table, row)
+            standby.after_transfer = lambda: corrupt_table_row(table, row)
+        standby._run(plant)
 
     threading.Thread(target=drill, daemon=True,
                      name="mv-audit-corrupt-drill").start()

@@ -91,7 +91,15 @@ def test_import_pulls_in_no_jax():
             "multiverso_tpu_torch.obs.critpath",
             "multiverso_tpu_torch.obs.chargeback",
             "multiverso_tpu_torch.obs.slo",
-            "multiverso_tpu_torch.fault.lockcheck"} <= set(loaded)
+            "multiverso_tpu_torch.fault.lockcheck",
+            "multiverso_tpu_torch.tune",
+            "multiverso_tpu_torch.tune.rules",
+            "multiverso_tpu_torch.tune.sensors",
+            "multiverso_tpu_torch.autopilot",
+            "multiverso_tpu_torch.autopilot.actuators",
+            "multiverso_tpu_torch.autopilot.interlock",
+            "multiverso_tpu_torch.autopilot.policy",
+            "multiverso_tpu_torch.autopilot.sensors"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 

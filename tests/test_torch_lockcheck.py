@@ -5,9 +5,9 @@ metric and flag rules pointed at the port.
 The fixture puts back exactly the lock factories it found, whether the
 JAX package's sanitizer had patched them (``MV_LOCKCHECK=1``) or not. The
 lint test holds the port's findings to the metrics and flags of the
-modules still to be ported (``tune/``, ``autopilot/``,
-``runtime/multihost.py``, ``native/``); each later slice shrinks the
-list, and it ends empty."""
+modules still to be ported (``runtime/multihost.py`` with the mesh, and
+``native/``'s allocator); each later slice shrinks the list, and it ends
+empty."""
 
 import re
 import threading
@@ -173,33 +173,18 @@ def test_lockcheck_cycle_counts_and_dumps(lockcheck_session, tmp_path):
 
 # -- tools.mvlint on the port ---------------------------------------------------
 
-#: Flags of the modules still to be ported: ``native/`` (the allocator),
-#: ``autopilot/``, ``tune/`` and ``runtime/multihost.py`` with the mesh.
+#: Flags of the modules still to be ported: ``native/`` (the allocator)
+#: and ``runtime/multihost.py`` with the mesh.
 QUEUED_FLAGS = {
     "allocator_alignment", "allocator_type",
-    "autopilot_blue_green", "autopilot_cooldown_seconds",
-    "autopilot_hedge_rate", "autopilot_hysteresis_ticks",
-    "autopilot_interval_seconds", "autopilot_max_replicas",
-    "autopilot_min_replicas", "autopilot_scaledown_qps",
-    "autopilot_tier_max_bytes", "autopilot_tier_step_bytes",
-    "autopilot_tier_target_hit_rate", "autopilot_window_seconds",
-    "autotune", "autotune_cooldown_seconds", "autotune_hysteresis_ticks",
-    "autotune_interval_seconds", "autotune_regress_pct",
-    "autotune_verify_ticks", "autotune_window_seconds",
     "mesh_axes", "mesh_shape",
     "multihost_endpoint", "multihost_timeout", "multihost_token",
     "multihost_window",
 }
 #: Catalogued metrics only those modules emit.
 QUEUED_METRICS = {
-    "AUTOPILOT_ACKS", "AUTOPILOT_ACTIONS", "AUTOPILOT_ACTION_FAILURES",
-    "AUTOPILOT_ACTION_INFLIGHT", "AUTOPILOT_FREEZES", "AUTOPILOT_FROZEN",
-    "AUTOPILOT_FROZEN_SKIPS", "AUTOPILOT_TICKS",
-    "FLEET_SHARD<*>_REPLICA_LAG",
     "FOLLOWER_FORWARD_MSG", "FOLLOWER_REPLAY_ADD_MSG",
     "FOLLOWER_REPLAY_GET_MSG", "MULTIHOST_WINDOW_INFLIGHT",
-    "TUNE_<*>", "TUNE_APPLY_BATCH_MSGS", "TUNE_COMMITS", "TUNE_OBJECTIVE",
-    "TUNE_PAUSED_TICKS", "TUNE_REVERTS", "TUNE_STEPS", "TUNE_TICKS",
 }
 
 

@@ -300,6 +300,37 @@ def test_records_racing_the_state_transfer_are_not_lost(port_env):
     assert standby.applied_watermark == 3
 
 
+def test_audit_drill_survives_a_fresh_state_transfer(port_env):
+    """The MV_AUDIT_CORRUPT drill's flip must outlive a resubscribe: a
+    lease stall or a replication gap loads the primary's bytes over the
+    replica's tables, and the drill re-plants the flip inside that same
+    serialized load, so the auditor still finds the divergence."""
+    from multiverso_tpu_torch import io as mv_io
+    from multiverso_tpu_torch.durable.standby import WarmStandby
+    from multiverso_tpu_torch.shard._child import _arm_audit_corruption
+
+    table = mv.create_table("matrix", num_row=16, num_col=4)
+    snapshot = mv_io.MemoryStream()
+    table._server_table.store(snapshot)  # the all-zeros primary state
+    transfer = {"tables": {table.table_id: np.frombuffer(
+        snapshot.getvalue(), dtype=np.uint8)}, "dedup": [], "watermark": 0}
+    standby = WarmStandby("127.0.0.1:1", "127.0.0.1:1", tables=[table],
+                          takeover=False)  # never started: driven by hand
+    standby._load_state(transfer)
+    _arm_audit_corruption(standby, f"{table.table_id}:7:0")
+    deadline = time.monotonic() + 30.0
+    while standby.after_transfer is None and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert standby.after_transfer is not None
+
+    def flipped_rows():
+        bits = np.asarray(table.get(), np.float32).view(np.uint32)
+        return sorted(set(np.nonzero(bits)[0].tolist()))
+    assert flipped_rows() == [7]
+    standby._load_state(transfer)  # the resubscribe's fresh transfer
+    assert flipped_rows() == [7]
+
+
 # -- hedged reads -------------------------------------------------------------
 
 class _FakeReplica:
