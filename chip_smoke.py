@@ -273,9 +273,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    matches, its commit or revert agrees with the objective printed
    beside it, and the flight records replay to the live flag value; the
    table bitwise equal to the mirror; the scatter launched.
-19. The run's seconds, one JSON line listing every kernel (with its
-   launches in the shard processes and over phases 17 and 18), then the
-   last line ``{"ok": true, "device": {...}}``.
+19. The multi-process PS: a 2-rank ``torch.distributed`` world (gloo),
+   both ranks on the one card, each a process of this script
+   (``--multihost-rank``) with 2 local workers (configuration 1's 4).
+   Leg 1: configuration 1's 1M x 50 fp32 matrix split 500,000 rows a rank,
+   128 async rounds of a 1024-row Add (integer deltas) and Get from every
+   worker, 50 4-row sync Adds a rank (the control plane's cost an op),
+   then, in a BSP world restored from leg 3's snapshot, 32 BSP rounds; the
+   final whole-table read bitwise equal to a numpy mirror on both ranks;
+   the scatter and the gather launched in both ranks. Leg 2: word2vec at
+   configuration 2's width (vocabulary 100,000, dimension 128), 8
+   8192-token blocks through the named block transaction, the ranks in
+   turn with host draws: both ranks' views of the tables equal, the loss
+   falling, the tables and losses within W2V_RTOL/ATOL of a one-process
+   port run fed the same blocks and draws. Leg 3: the snapshot (leader
+   writes, every rank reads its rows) and the restore of leg 1's table,
+   bitwise; one ``mvt.aggregate`` of a 1.86 MB vector (configuration 7's
+   table) per worker, equal bit for bit to the sum in the reference's
+   order. Adds/s, Add and Get p50/p99, the Get exchange's ms, the control
+   plane's ms an op, words/s, snapshot and restore seconds.
+20. The run's seconds, one JSON line listing every kernel (with its
+   launches in the shard processes, over phases 17 and 18 and in each
+   rank of phase 19), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
 """
@@ -283,6 +303,7 @@ It needs the card: without CUDA it exits 1 before printing any result.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import queue
@@ -5940,6 +5961,422 @@ def control_phase(mvt, rows, device: str, card: str, scratch: str,
     return metrics, launches
 
 
+# -- phase 19: the multi-process lockstep PS -----------------------------------
+# Two ranks of one torch.distributed world (gloo) on the one card, each a
+# process of this script (``--multihost-rank``) with its own CUDA context.
+MH_RANKS = 2
+MH_LOCAL_WORKERS = 2              # 2 a rank: configuration 1's 4 workers
+MH_ASYNC_ROUNDS = 128             # leg 1: async 1024-row Add+Get rounds
+MH_BSP_ROUNDS = 32                # leg 1: BSP rounds after the restore
+MH_CTRL_OPS = 50                  # 4-row sync Adds a rank: the ctrlperf twin
+MH_W2V_BLOCKS = 8                 # leg 2: 8192-token blocks, ranks in turn
+MH_AGG_FLOATS = 464_154           # leg 3: configuration 7's table (1.86 MB)
+MH_SEED = 19
+MH_S = 300                        # a rank's limit
+
+
+def mh_round(seed: int, wid: int, k: int, num_row: int, num_col: int,
+             batch: int):
+    """Worker ``wid``'s round ``k``: Add ids (duplicates included), integer
+    Add values (every float32 sum exact, in any order), Get ids."""
+    rng = np.random.default_rng([seed, wid, k, 3])
+    return (rng.integers(0, num_row, batch).astype(np.int32),
+            int_rows(rng, (batch, num_col)),
+            rng.integers(0, num_row, batch).astype(np.int32))
+
+
+def mh_mirror(sz: dict) -> tuple:
+    """Leg 1's table as numpy sums it: every worker's async Adds, then the
+    BSP rounds one at a time. Returns (table, Get digests): the digest of
+    BSP round ``k``'s Get rows of worker ``wid`` at ``[wid][k]``, read
+    after round ``k`` of every worker's Adds, as BSP promises."""
+    mirror = np.zeros((sz["num_row"], sz["num_col"]), np.float32)
+    workers = MH_RANKS * MH_LOCAL_WORKERS
+    args = (sz["num_row"], sz["num_col"], sz["batch"])
+    for wid in range(workers):
+        for k in range(sz["async_rounds"]):
+            ids, vals, _ = mh_round(MH_SEED, wid, k, *args)
+            np.add.at(mirror, ids, vals)
+    gets = [[] for _ in range(workers)]
+    for k in range(sz["async_rounds"], sz["async_rounds"] + sz["bsp_rounds"]):
+        rounds = [mh_round(MH_SEED, wid, k, *args) for wid in range(workers)]
+        for ids, vals, _ in rounds:
+            np.add.at(mirror, ids, vals)
+        for wid, (_, _, gids) in enumerate(rounds):
+            gets[wid].append(mh_digest(mirror[gids]))
+    return mirror, gets
+
+
+def mh_agg_value(wid: int, n: int) -> np.ndarray:
+    return np.random.default_rng([MH_SEED, wid, 7]).standard_normal(
+        n, dtype=np.float32)
+
+
+def mh_w2v_block(sz: dict, i: int):
+    """Leg 2's block ``i``, its host seed and its device draws: the same
+    in the world and in the one-process run it is held against."""
+    w2v = mh_w2v_config(sz)
+    tokens = zipf_tokens(np.random.default_rng([MH_SEED, i, 5]),
+                         w2v["block_tokens"], w2v["vocab_size"])
+
+    def hook(step, t, tg, pool):
+        rng = np.random.default_rng([MH_SEED, i, step, 6])
+        return {"win": rng.integers(1, w2v["window"] + 1, t),
+                "neg": rng.integers(0, pool, (tg, w2v["negatives"]))}
+
+    return tokens, np.random.default_rng([MH_SEED, i]), hook
+
+
+def mh_w2v_config(sz: dict) -> dict:
+    return dict(W2V, vocab_size=sz["vocab"], dim=sz["dim"])
+
+
+def mh_w2v_run(mvt, sz: dict, turn, barrier) -> tuple:
+    """Train leg 2's blocks: block i where ``turn(i)``, each from its own
+    host seed and draws, ``barrier()`` after each. Returns (trainer,
+    losses, seconds)."""
+    from multiverso_tpu_torch.models.word2vec import PSTrainer, Word2VecConfig
+    from multiverso_tpu_torch.models.vocab import Dictionary
+    w2v = mh_w2v_config(sz)
+    d = Dictionary()
+    d.words = [f"w{i}" for i in range(w2v["vocab_size"])]
+    d.word2id = {w: i for i, w in enumerate(d.words)}
+    d.counts = w2v_counts(w2v["vocab_size"])
+    trainer = PSTrainer(Word2VecConfig(**w2v), d)  # collective creation
+    if not trainer._can_transact():
+        raise AssertionError("word2vec: the named block transaction is off")
+    barrier()
+    losses = {}
+    t0 = time.perf_counter()
+    for i in range(sz["blocks"]):
+        if turn(i):
+            tokens, trainer.rng, trainer.draw_hook = mh_w2v_block(sz, i)
+            with mvt.worker(0):
+                losses[i] = trainer.train_block(tokens)
+        barrier()
+    return trainer, losses, time.perf_counter() - t0
+
+
+def mh_digest(arr: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def multihost_rank_main(argv) -> int:
+    """``chip_smoke.py --multihost-rank RANK COORD_PORT OUTDIR``: one rank
+    of phase 19's world (its spec in ``OUTDIR/spec.json``). Writes
+    ``OUTDIR/rank<R>.json``; rank 0 also leaves the final tables there."""
+    from multiverso_tpu_torch import checkpoint
+    import multiverso_tpu_torch as mvt
+    from multiverso_tpu_torch.ops import kernels, rows
+    rank, coord, outdir = int(argv[0]), argv[1], argv[2]
+    with open(os.path.join(outdir, "spec.json")) as f:
+        spec = json.load(f)
+    sz, device, world = spec["sizes"], spec["device"], spec["world"]
+    if device == "cuda":
+        kernels.load("rows")  # built by the parent: a cache hit
+    else:
+        torch.set_num_threads(1)
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    mvt.init_distributed(f"127.0.0.1:{coord}", world, rank)
+    flags = dict(device=device, local_workers=MH_LOCAL_WORKERS,
+                 multihost_endpoint=f"127.0.0.1:{spec['ctl'][0]}")
+    mvt.init(**flags)
+    zoo = mvt.Zoo.instance()
+    out["bringup_s"] = time.perf_counter() - t0
+    out["device"] = str(zoo.device)
+    num_row, num_col, batch = sz["num_row"], sz["num_col"], sz["batch"]
+
+    def drive(mat, rounds: int, base: int, sync: bool) -> dict:
+        """Both local workers' rounds; per-op latencies and the window."""
+        lat = {0: ([], []), 1: ([], [])}
+        digests = {}
+
+        def work(slot):
+            wid = rank * MH_LOCAL_WORKERS + slot
+            adds, gets = lat[slot]
+            seen = digests.setdefault(wid, [])
+            with mvt.worker(slot):
+                for k in range(rounds):
+                    ids, vals, gids = mh_round(MH_SEED, wid, base + k,
+                                               num_row, num_col, batch)
+                    a = time.perf_counter()
+                    mat.add(vals, row_ids=ids)
+                    b = time.perf_counter()
+                    got = mat.get(gids)
+                    adds.append(b - a)
+                    gets.append(time.perf_counter() - b)
+                    if got.shape != (batch, num_col) or not np.isfinite(got).all():
+                        raise AssertionError(f"bad Get reply {got.shape}")
+                    if sync:  # held to the mirror's round by the parent
+                        seen.append(mh_digest(got))
+                if sync:
+                    mat.finish_train()
+
+        start = time.time()
+        join_workers(MH_LOCAL_WORKERS, work, timeout=MH_S)
+        end = time.time()
+        adds = [x for s in lat for x in lat[s][0]]
+        gets = [x for s in lat for x in lat[s][1]]
+        return {"start": start, "end": end, "adds": len(adds),
+                "get_digests": {str(w): d for w, d in digests.items()},
+                "add_ms": [x * 1e3 for x in adds],
+                "get_ms": [x * 1e3 for x in gets]}
+
+    # leg 1, async: configuration 1's matrix split over the ranks
+    mat = mvt.create_table("matrix", num_row, num_col, np.float32)
+    srv = mat._server_table
+    out["rows_held"] = [srv.row_lo, srv.row_hi]
+    out["shard_bytes"] = srv.data.numel() * srv.data.element_size()
+    mvt.process_barrier()
+    zero_launches(rows)
+    zoo.multihost.exchange_log.clear()
+    out["async"] = drive(mat, sz["async_rounds"], 0, sync=False)
+    exch = list(zoo.multihost.exchange_log)
+    out["get_exchange_ms"] = [t * 1e3 for t, _ in exch]
+    out["get_exchange_bytes"] = float(np.mean([b for _, b in exch]))
+    mvt.process_barrier()
+    ones, ids4 = np.ones((4, num_col), np.float32), np.arange(4, dtype=np.int32)
+    ctrl = []
+    with mvt.worker(0):
+        mat.add(ones, row_ids=ids4)  # warm
+        for _ in range(MH_CTRL_OPS):
+            a = time.perf_counter()
+            mat.add(ones, row_ids=ids4)
+            ctrl.append((time.perf_counter() - a) * 1e3)
+        mat.add(-(MH_CTRL_OPS + 1) * ones, row_ids=ids4)  # back out
+    out["ctrl_op_ms"] = float(np.median(ctrl))
+    mvt.process_barrier()
+
+    # leg 2: word2vec at configuration 2's width, ranks in turn
+    trainer, losses, secs = mh_w2v_run(
+        mvt, sz, lambda i: i % world == rank, mvt.process_barrier)
+    with mvt.worker(0):
+        w_in = trainer.input_table.get()
+        w_out = trainer.output_table.get()
+    out["w2v"] = {"losses": {str(i): v for i, v in losses.items()},
+                  "seconds": secs, "in_digest": mh_digest(w_in),
+                  "out_digest": mh_digest(w_out),
+                  "words": sz["blocks"] * W2V["block_tokens"]}
+    if rank == 0:
+        np.save(os.path.join(outdir, "w2v_in.npy"), w_in)
+        np.save(os.path.join(outdir, "w2v_out.npy"), w_out)
+    del w_in, w_out, trainer
+    mvt.process_barrier()
+
+    # leg 3: snapshot leg 1's table on the leader; every rank reads its rows
+    with mvt.worker(0):
+        before = mat.get()
+    out["pre_snapshot_digest"] = mh_digest(before)
+    del before
+    path = os.path.join(outdir, "leg1.mvckpt")
+    if rank == 0:
+        a = time.perf_counter()
+        checkpoint.store_table(mat, path)
+        out["snapshot_s"] = time.perf_counter() - a
+    mvt.process_barrier()
+    out["launches_async"] = launch_counts(rows)
+    mvt.shutdown()
+
+    # a BSP world restores it, runs its rounds, and aggregates
+    mvt.init(**dict(flags, sync=True,
+                    multihost_endpoint=f"127.0.0.1:{spec['ctl'][1]}"))
+    zoo = mvt.Zoo.instance()
+    mat = mvt.create_table("matrix", num_row, num_col, np.float32)
+    if rank == 0:
+        a = time.perf_counter()
+        checkpoint.load_table(mat, path)
+        out["restore_s"] = time.perf_counter() - a
+    mvt.process_barrier()
+    with zoo.admin():
+        out["restored_digest"] = mh_digest(mat.get())
+    out["bsp"] = drive(mat, sz["bsp_rounds"], sz["async_rounds"], sync=True)
+    mvt.process_barrier()
+    with zoo.admin():
+        final = mat.get()
+    out["final_digest"] = mh_digest(final)
+    if rank == 0:
+        np.save(os.path.join(outdir, "leg1_final.npy"), final)
+    del final
+    agg = {}
+
+    def aggregate(slot):
+        wid = rank * MH_LOCAL_WORKERS + slot
+        value = torch.from_numpy(mh_agg_value(wid, sz["agg"])).to(zoo.device)
+        with mvt.worker(slot):
+            a = time.perf_counter()
+            total = mvt.aggregate(value)
+            agg[slot] = (time.perf_counter() - a, total)
+
+    join_workers(MH_LOCAL_WORKERS, aggregate, timeout=MH_S)
+    out["aggregate_ms"] = agg[0][0] * 1e3
+    out["aggregate_digest"] = mh_digest(agg[0][1].cpu().numpy())
+    out["aggregate_on"] = str(agg[0][1].device)
+    if not all(torch.equal(agg[0][1], agg[s][1]) for s in agg):
+        raise AssertionError("aggregate: the local workers got different sums")
+    out["launches"] = launch_counts(rows)
+    mvt.shutdown()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    print(f"MULTIHOST_RANK_OK rank={rank}", flush=True)
+    return 0
+
+
+def multihost_phase(mvt, device: str, scratch: str,
+                    sizes=None) -> tuple:
+    """Phase 19: a 2-rank lockstep world on ``device`` (both ranks on the
+    one card), leg 1 (configuration 1, async then BSP around leg 3's
+    snapshot and restore), leg 2 (word2vec at configuration 2's width,
+    ranks in turn) and leg 3 (the snapshot and restore, an aggregate).
+    Returns (metrics, row-kernel launches by rank). ``sizes`` shrinks it
+    for a CPU rehearsal."""
+    sz = dict(num_row=ROWS, num_col=COLS, batch=BATCH,
+              async_rounds=MH_ASYNC_ROUNDS, bsp_rounds=MH_BSP_ROUNDS,
+              vocab=W2V["vocab_size"], dim=W2V["dim"], blocks=MH_W2V_BLOCKS,
+              agg=MH_AGG_FLOATS)
+    sz.update(sizes or {})
+    t_phase = time.perf_counter()
+    outdir = os.path.join(scratch, "multihost")
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "spec.json"), "w") as f:
+        json.dump({"sizes": sz, "device": device, "world": MH_RANKS,
+                   "ctl": [free_port(), free_port()]}, f)
+    coord = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = [open(os.path.join(outdir, f"rank{r}.log"), "w")
+            for r in range(MH_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-rank",
+         str(r), str(coord), outdir], stdout=logs[r],
+        stderr=subprocess.STDOUT, cwd=here) for r in range(MH_RANKS)]
+    try:
+        # the numpy mirror of leg 1 while the ranks run
+        mirror, bsp_gets = mh_mirror(sz)
+        codes = [p.wait(timeout=MH_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for f in logs:
+            f.close()
+    for r, code in enumerate(codes):
+        if code != 0:
+            with open(os.path.join(outdir, f"rank{r}.log")) as f:
+                tail = "".join(f.readlines()[-40:])
+            raise AssertionError(f"multihost rank {r} exited {code}:\n{tail}")
+    world_s = time.perf_counter() - t_phase
+    res = []
+    for r in range(MH_RANKS):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    m = {"world_s": world_s, "devices": [x["device"] for x in res],
+         "bringup_s": [x["bringup_s"] for x in res],
+         "rows_held": [x["rows_held"] for x in res],
+         "shard_mb": [x["shard_bytes"] / 1e6 for x in res]}
+
+    # leg 1: every view of the table is the mirror, bit for bit
+    final = np.load(os.path.join(outdir, "leg1_final.npy"))
+    if not np.array_equal(final, mirror):
+        gap = float(np.abs(final - mirror).max())
+        raise AssertionError(f"leg 1: the final table is off the mirror by "
+                             f"{gap}")
+    if len({x["final_digest"] for x in res} | {mh_digest(mirror)}) != 1:
+        raise AssertionError("leg 1: the ranks' views of the final table "
+                             "differ")
+    del final, mirror
+    # the BSP rounds' Gets, each through the exchange: round k's rows are
+    # the mirror's after round k of every worker's Adds, bit for bit
+    for x in res:
+        for wid, seen in x["bsp"]["get_digests"].items():
+            want = bsp_gets[int(wid)]
+            bad = [k for k, (a, b) in enumerate(zip(seen, want)) if a != b]
+            if bad or len(seen) != len(want):
+                raise AssertionError(
+                    f"leg 1: worker {wid}'s BSP Gets are off the mirror in "
+                    f"rounds {bad} ({len(seen)} of {len(want)} replies)")
+    m["1_bsp_gets_checked"] = sum(len(d) for x in res
+                                  for d in x["bsp"]["get_digests"].values())
+    for leg in ("async", "bsp"):
+        start = min(x[leg]["start"] for x in res)
+        end = max(x[leg]["end"] for x in res)
+        adds = sum(x[leg]["adds"] for x in res)
+        m[f"1_{leg}"] = {
+            "adds": adds, "adds_per_s": adds / (end - start),
+            "add_ms": percentiles([v for x in res for v in x[leg]["add_ms"]]),
+            "get_ms": percentiles([v for x in res for v in x[leg]["get_ms"]])}
+    m["1_async"]["get_exchange_ms"] = percentiles(
+        [v for x in res for v in x["get_exchange_ms"]])
+    m["1_async"]["get_exchange_kb"] = [x["get_exchange_bytes"] / 1e3
+                                       for x in res]
+    m["1_ctrl_op_ms"] = [x["ctrl_op_ms"] for x in res]
+
+    # leg 2: the ranks' replays agree; the loss falls; the one-process port
+    # run fed the same blocks and draws ends within W2V_RTOL/ATOL
+    if (len({x["w2v"]["in_digest"] for x in res}) != 1
+            or len({x["w2v"]["out_digest"] for x in res}) != 1):
+        raise AssertionError("leg 2: the ranks' views of the word2vec tables "
+                             "differ")
+    losses = {}
+    for x in res:
+        losses.update({int(i): v for i, v in x["w2v"]["losses"].items()})
+    losses = [losses[i] for i in range(sz["blocks"])]
+    half = len(losses) // 2
+    if not np.mean(losses[half:]) < np.mean(losses[:half]):
+        raise AssertionError(f"leg 2: the loss did not fall: {losses}")
+    mvt.init(device=device, local_workers=1)
+    try:
+        ref, ref_losses, _ = mh_w2v_run(mvt, sz, lambda i: True,
+                                        lambda: None)
+        with mvt.worker(0):
+            ref_in, ref_out = ref.input_table.get(), ref.output_table.get()
+    finally:
+        stop_runtime(mvt)
+    w_gap = 0.0
+    for name, ref_t in (("in", ref_in), ("out", ref_out)):
+        got = np.load(os.path.join(outdir, f"w2v_{name}.npy"))
+        np.testing.assert_allclose(got, ref_t, rtol=W2V_RTOL, atol=W2V_ATOL,
+                                   err_msg=f"leg 2: w_{name} off the "
+                                           f"one-process run")
+        w_gap = max(w_gap, float(np.abs(got - ref_t).max()))
+    np.testing.assert_allclose(losses, [ref_losses[i] for i in
+                                        range(sz["blocks"])], rtol=W2V_RTOL)
+    secs = max(x["w2v"]["seconds"] for x in res)
+    m["2_word2vec"] = {"blocks": sz["blocks"], "losses": losses,
+                       "words_per_s": res[0]["w2v"]["words"] / secs,
+                       "seconds": secs, "max_abs_gap_vs_one_process": w_gap}
+
+    # leg 3: the restore is the snapshot bit for bit; the aggregate is the
+    # reference's sum: each rank's workers in slot order, then the ranks'
+    # sums in rank order
+    if len({x["pre_snapshot_digest"] for x in res}
+           | {x["restored_digest"] for x in res}) != 1:
+        raise AssertionError("leg 3: the restored table is not the snapshot")
+    n = sz["agg"]
+    ranks = [mh_agg_value(r * 2, n) + mh_agg_value(r * 2 + 1, n)
+             for r in range(MH_RANKS)]
+    want = ranks[0]
+    for r in ranks[1:]:
+        want = want + r
+    if {x["aggregate_digest"] for x in res} != {mh_digest(want)}:
+        raise AssertionError("leg 3: aggregate is not the reference-order sum")
+    m["3_checkpoint"] = {"snapshot_s": res[0]["snapshot_s"],
+                         "restore_s": res[0]["restore_s"],
+                         "table_mb": sz["num_row"] * sz["num_col"] * 4 / 1e6}
+    m["3_aggregate"] = {"floats": n, "ms": [x["aggregate_ms"] for x in res],
+                        "on": [x["aggregate_on"] for x in res]}
+    launches = {f"rank{x['rank']}": x["launches"] for x in res}
+    for rank, counts in launches.items():
+        for k, c in counts.items():
+            # the wrappers count launches of the kernels: on the card only
+            if device == "cuda" and c <= 0:
+                raise AssertionError(f"{k}: no launch in {rank}")
+    m["phase_s"] = time.perf_counter() - t_phase
+    return m, launches
+
+
 KERNELS = {
     "scatter_add_rows":"multiverso_tpu/ops/pallas_rows.py:172",
     "gather_rows": "multiverso_tpu/ops/pallas_rows.py:107",
@@ -5957,6 +6394,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--durable-primary"]:
         return durable_primary_main(argv[1:])
+    if argv[:1] == ["--multihost-rank"]:
+        return multihost_rank_main(argv[1:])
     args = parser.parse_args(argv)
     if args.client:
         return client_main()
@@ -6160,7 +6599,14 @@ def smoke(args, scratch: str) -> int:
     print(f"control plane phase: {control['phase_s']:.1f} s ({card})",
           flush=True)
 
-    # 19. the kernel line, then the verdict
+    # 19. the multi-process PS: a 2-rank lockstep world on the one card
+    multihost, mh_launches = multihost_phase(mvt, "cuda", scratch)
+    print(f"multi-process PS on {card}: {json.dumps(multihost)}; row-kernel "
+          f"launches by rank: {json.dumps(mh_launches)}", flush=True)
+    print(f"multi-process PS phase: {multihost['phase_s']:.1f} s ({card})",
+          flush=True)
+
+    # 20. the kernel line, then the verdict
     table = []
     for k, where in KERNELS.items():
         r = results[k]
@@ -6187,7 +6633,10 @@ def smoke(args, scratch: str) -> int:
                           **{f"autopilot/{role}": c.get(k, 0) for role, c
                              in control_launches["1_autopilot"].items()},
                           "tuner/server": control_launches["2_tuner"].get(
-                              k, 0)}})
+                              k, 0)},
+                      # phase 19: launches in each rank of the world
+                      "multihost_rank_launches": {
+                          rank: c.get(k, 0) for rank, c in mh_launches.items()}})
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": table}))

@@ -10,6 +10,7 @@ versions on the CPU.
 Public surface (MV_* parity, the part ported so far):
 
     init / shutdown / barrier / process_barrier
+    init_distributed               (form a multi-process lockstep world)
     rank / size / num_workers / num_servers / worker_id / server_id
     worker_id_to_rank / server_id_to_rank / is_master_worker
     set_flag / get_flag / parse_cmd_flags
@@ -82,6 +83,15 @@ snapshots (``metrics_path``), the time-series sampler, the sampling
 profiler (``profile_continuous``), the SLO engine (``slo_spec``) and the
 knob tuner (``autotune``); ``shutdown`` stops them.
 
+``init_distributed(coordinator, world, rank)`` on every process, then
+``init(multihost_endpoint=...)`` with the same flags, forms a multi-process
+lockstep world (``runtime/multihost.py``): rank 0 runs the dispatcher and
+the other ranks replay its stream, the matrix and array tables split their
+rows over the ranks, ``process_barrier`` crosses processes and
+``aggregate`` sums over every rank's workers. Each rank's tables sit on
+its card (``cuda``; every rank shares a single card) unless
+``device="cpu"`` is asked for; the ranks talk over gloo.
+
 ``init`` puts the tables on ``cuda`` unless the caller asks for the CPU
 (``init(device="cpu")`` or ``-device=cpu``); it raises when CUDA is absent
 and the CPU was not asked for.
@@ -98,6 +108,7 @@ from multiverso_tpu_torch.dashboard import Dashboard, Timer, monitor  # noqa: F4
 from multiverso_tpu_torch.runtime.node import Role  # noqa: F401
 from multiverso_tpu_torch.runtime.programs import (  # noqa: F401
     clear_programs, register_program, registered_programs)
+from multiverso_tpu_torch.runtime.multihost import init_distributed  # noqa: F401
 from multiverso_tpu_torch.runtime.zoo import Zoo
 
 __version__ = "0.1.0"
@@ -294,7 +305,8 @@ def barrier() -> None:
 
 
 def process_barrier() -> None:
-    """Cross-process rendezvous: a no-op in a single process."""
+    """Cross-process rendezvous: real in a multi-process lockstep world
+    (over its control plane), a no-op in a single process."""
     Zoo.instance().process_barrier()
 
 

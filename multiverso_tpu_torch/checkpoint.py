@@ -24,8 +24,12 @@ protocol of ``durable/wal.py``: one dispatcher-serialised block rotates
 the log, stores every table into ``gen_<g>/``, commits the MANIFEST and
 retires older segments and generations.
 
-Not yet ported: multihost snapshots (the leader check passes on rank 0
-only).
+In a multi-process lockstep world (``runtime/multihost.py``) snapshots and
+restores drive from the leader (rank 0) only. A snapshot broadcasts a
+``store`` descriptor: every rank takes part in the collective device-to-
+host read of its rows, the leader writes the file, and the followers write
+to a null sink. A restore reads the file on the leader and broadcasts its
+bytes: every rank loads its own row range from them.
 """
 
 from __future__ import annotations
@@ -120,13 +124,16 @@ def read_array(stream: mv_io.Stream) -> np.ndarray:
 
 
 def _require_leader(verb: str) -> None:
-    """Snapshot/restore drive from rank 0 only (the multihost lockstep
-    world is not ported; a single process is rank 0)."""
+    """Multihost: snapshot/restore drive from the leader only — a follower
+    calling a raw table's store/load would run the collective read OUTSIDE
+    the lockstep replay stream and desynchronize the world. The leader's
+    lockstep wrapper broadcasts it to the followers."""
     from multiverso_tpu_torch.runtime.zoo import Zoo
     zoo = Zoo.instance()
     if zoo.rank != 0:
-        log.fatal("checkpoint %s must run on rank 0; this is rank %d",
-                  verb, zoo.rank)
+        log.fatal("checkpoint %s must run on the multihost leader (rank 0);"
+                  " this is rank %d — followers participate via lockstep "
+                  "replay automatically", verb, zoo.rank)
 
 
 def _run_serialized(fn):

@@ -214,6 +214,27 @@ define_int("remote_workers", 0,
            "expected off-process worker clients (serve() / "
            "remote_connect()); they get worker ids after all local "
            "contexts")
+# The multi-process lockstep world (runtime/multihost.py) and its rank
+# mesh (parallel/mesh.py), as in the JAX package.
+define_string("multihost_endpoint", "",
+              "host:port the leader (rank 0 of the torch.distributed "
+              "world) binds for the multihost lockstep control plane; same "
+              "value on every process")
+define_double("multihost_timeout", 120.0,
+              "multihost control-plane connect/barrier timeout (seconds); "
+              "also the process group's collective timeout")
+define_int("multihost_window", 64,
+           "max follower-origin table ops in flight to the leader before "
+           "the forwarding worker blocks (windowed pipelined control "
+           "plane; acks complete out of a reorder buffer). 0 = unbounded")
+define_string("multihost_token", "",
+              "shared secret authenticating multihost control-plane "
+              "handshakes (HMAC-SHA256 over the hello frames); empty gives "
+              "integrity-only framing — see docs/multihost.md trust model")
+define_string("mesh_shape", "",
+              "rank mesh shape, e.g. '2x2'; empty = auto 1-D over the "
+              "world's ranks (one device per rank)")
+define_string("mesh_axes", "server", "comma-separated mesh axis names")
 define_int("apply_batch_msgs", 64,
            "max queued Adds the dispatcher fuses into ONE table apply per "
            "drain (runtime/server.py): the async server drains its queue "

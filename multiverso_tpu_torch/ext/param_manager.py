@@ -16,7 +16,10 @@ since the last sync and writes the merged global value back into the model.
 
 The per-worker views (:meth:`PytreeParamManager.worker_view`) sync in the
 table's device leaf forms (``sync_leaves_async`` and friends): the model
-never leaves the device.
+never leaves the device. In a multi-process lockstep world the table's
+device IO is off and the views take the host path; the table is seeded
+once per world (the master worker is rank 0's slot 0) behind a
+``process_barrier``.
 """
 
 from __future__ import annotations

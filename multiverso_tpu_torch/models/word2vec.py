@@ -43,7 +43,17 @@ Remote proxies of a client connected with ``read_endpoints`` read through
 the read tier (``runtime/read.py``), and a server with the ``wal_dir``
 flag logs the pushes, as in the JAX package.
 
-Not yet ported: the multihost branches.
+* In a multi-process lockstep world (``runtime/multihost.py``) the fused
+  transaction is the named form that rides the lockstep stream, and its
+  arguments are host data: the packed ids, and the block step's draws
+  made on the host (the hook's, or window sizes and negative slots drawn
+  with numpy from ``seed + 1``). A draw made from each rank's
+  ``torch.Generator`` would diverge between the ranks' replays. Every rank
+  runs the transaction: it gathers the candidate rows it holds, the ranks
+  exchange them (``MatrixServer.candidate_rows``), every rank runs the
+  block step on the whole candidate set with the same draws, and each
+  scatters back only the delta rows it holds
+  (``MatrixServer.owned_push``).
 """
 
 from __future__ import annotations
@@ -863,9 +873,11 @@ class PSTrainer:
         self.rng = np.random.default_rng(config.seed)
         self.words_trained = 0
         self.last_block_stats: Dict[str, int] = {}
-        # device draws of the block step (window sizes, negative slots)
+        # device draws of the block step (window sizes, negative slots);
+        # a multi-process world draws them on the host instead
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed + 1)
+        self._host_draws = np.random.default_rng(config.seed + 1)
         self.draw_hook: Optional[DrawHook] = None
         # sg+ns fast path: the roll-formulation block step run directly on
         # the compact candidate space, with negatives from a fixed-size
@@ -881,6 +893,12 @@ class PSTrainer:
             self._slot_lut_lock = threading.Lock()
             if self._can_transact():
                 self._build_txn_fn()
+        if Zoo.instance().multihost is not None:
+            # construction is collective: every rank must hold the
+            # registered transaction before any rank submits a block (a
+            # replayed descriptor naming it could otherwise reach a rank
+            # still between its last table and the registration)
+            mvt.process_barrier()
 
     # -- host-side batch shaping ---------------------------------------------
     def _block_pairs(self, block: np.ndarray):
@@ -939,7 +957,10 @@ class PSTrainer:
             return None
         lr = self.config.lr if lr is None else lr
         device_io = self._device_io()
-        if self._fast_sgns and device_io:
+        # multihost: device IO proper is off, but the NAMED fused
+        # transaction rides the lockstep stream — the fast path's txn
+        # branch is exactly that
+        if self._fast_sgns and (device_io or self._can_transact()):
             return self._submit_block_fast(block, lr)
         in_tok, in_w, predict = self._block_pairs(block)
         if len(predict) == 0:
@@ -1075,46 +1096,87 @@ class PSTrainer:
         state: gather candidate rows, run the block step, apply both
         tables' updates (linear scatter or server-side AdaGrad row update),
         return the stats triple. Registered by name."""
-        apply_in = self.input_table._server_table.row_apply_traceable()
-        apply_out = self.output_table._server_table.row_apply_traceable()
-        pc_in = self.input_table._server_table.padded_cols
-        pc_out = self.output_table._server_table.padded_cols
+        srv_in = self.input_table._server_table._unwrapped()
+        srv_out = self.output_table._server_table._unwrapped()
+        apply_in = srv_in.row_apply_traceable()
+        apply_out = srv_out.row_apply_traceable()
+        pc_in = srv_in.padded_cols
+        pc_out = srv_out.padded_cols
         dim = self.config.dim
+        dev = self.device
 
         def txn(datas, states, packed, draws, lr, scale, worker, scalars,
                 b_in, b_out, n_chunks, chunk):
-            # `packed` is ONE int32 upload [ids_in | ids_out | blocks_c |
-            # slot_alias]
+            # `packed` is ONE int32 array [ids_in | ids_out | blocks_c |
+            # slot_alias]: an upload in one process, host data in a
+            # multi-process world (as are the draws and scalars)
             data_in, data_out = datas
             st_in, st_out = states
+            sharded = srv_in.multihost is not None
+            if sharded:
+                ids_h = packed[:b_in + b_out]
+                packed = _as_index(packed, dev).to(torch.int32)
+                draws = [None if d is None
+                         else {k: _as_index(v, dev) for k, v in d.items()}
+                         for d in draws]
+                scalars = torch.as_tensor(scalars, dtype=torch.float32,
+                                          device=dev)
             ids_in = packed[:b_in]
             ids_out = packed[b_in:b_in + b_out]
             o = b_in + b_out
             blocks_c = packed[o:o + n_chunks * chunk].reshape(n_chunks, chunk)
             slot_alias = packed[o + n_chunks * chunk:]
+            if sharded:
+                # the ranks' held candidate rows, exchanged: every rank
+                # trains on the whole candidate set
+                cand_in = srv_in.candidate_rows(ids_h[:b_in])
+                cand_out = srv_out.candidate_rows(ids_h[b_in:])
+            else:
+                cand_in = gather_rows(data_in, ids_in)
+                cand_out = gather_rows(data_out, ids_out)
             d_in, d_out, stats = self._fast_delta(
-                gather_rows(data_in, ids_in), gather_rows(data_out, ids_out),
-                draws, blocks_c, slot_alias, lr, scale)
+                cand_in, cand_out, draws, blocks_c, slot_alias, lr, scale)
             if pc_in != dim:
                 d_in = F.pad(d_in, (0, pc_in - dim))
             if pc_out != dim:
                 d_out = F.pad(d_out, (0, pc_out - dim))
-            data_in, st_in = apply_in(data_in, st_in, ids_in, d_in, worker,
-                                      scalars)
-            data_out, st_out = apply_out(data_out, st_out, ids_out, d_out,
-                                         worker, scalars)
+            if sharded:
+                # each rank writes back only the rows it holds
+                ids_in, d_in = srv_in.owned_push(ids_h[:b_in], d_in)
+                ids_out, d_out = srv_out.owned_push(ids_h[b_in:], d_out)
+            if ids_in is not None:
+                data_in, st_in = apply_in(data_in, st_in, ids_in, d_in,
+                                          worker, scalars)
+            if ids_out is not None:
+                data_out, st_out = apply_out(data_out, st_out, ids_out,
+                                             d_out, worker, scalars)
             return [data_in, data_out], [st_in, st_out], stats
 
         self._txn_name = register_program(
             f"mv.w2v.block_txn/{self.input_table.table_id}"
             f"/{self.output_table.table_id}", txn)
 
-    def _chunk_draws(self, n_chunks: int, chunk: int, pool: int) -> List:
+    def _chunk_draws(self, n_chunks: int, chunk: int, pool: int,
+                     host: bool = False) -> List:
         """Per-chunk draws for one submission: None (the step draws from
-        ``self.generator``) or the hook's, on the device."""
+        ``self.generator``) or the hook's, on the device. ``host`` (a
+        multi-process world's descriptor) keeps them numpy, and without a
+        hook draws them with numpy: window sizes in ``[1, window]``,
+        negative slots in ``[0, pool)``."""
+        tg = chunk // self.config.neg_sharing
+        if host:
+            if self.draw_hook is not None:
+                return [{k: np.asarray(v) for k, v in
+                         self.draw_hook(i, chunk, tg, pool).items()}
+                        for i in range(n_chunks)]
+            rng = self._host_draws
+            return [{"win": rng.integers(1, self.config.window + 1,
+                                         size=chunk, dtype=np.int32),
+                     "neg": rng.integers(0, pool, size=(
+                         tg, self.config.negatives), dtype=np.int32)}
+                    for _ in range(n_chunks)]
         if self.draw_hook is None:
             return [None] * n_chunks
-        tg = chunk // self.config.neg_sharing
         return [{k: _as_index(v, self.device)
                  for k, v in self.draw_hook(i, chunk, tg, pool).items()}
                 for i in range(n_chunks)]
@@ -1182,7 +1244,9 @@ class PSTrainer:
         n_chunks = _next_pow2(-(-len(block) // chunk))
         blocks_c = np.full((n_chunks, chunk), -1, np.int32)
         blocks_c.reshape(-1)[: len(block)] = flat  # lut-remapped above
-        chunk_draws = self._chunk_draws(n_chunks, chunk, p_draws)
+        multihost = Zoo.instance().multihost is not None
+        chunk_draws = self._chunk_draws(n_chunks, chunk, p_draws,
+                                        host=multihost)
         scale = (-1.0 / lr) if self.use_adagrad else 1.0
         opt = self._add_option(lr)
 
@@ -1199,10 +1263,16 @@ class PSTrainer:
             ids_out_p = np.concatenate(
                 [ids_out, np.full(b_out - len(ids_out),
                                   self.output_table.sentinel_row, np.int32)])
-            worker, scalars = self.input_table._server_table._option_consts(opt)
-            packed = async_upload(np.concatenate(
-                [ids_in_p, ids_out_p, blocks_c.reshape(-1), slot_alias]),
-                self.device)
+            packed = np.concatenate(
+                [ids_in_p, ids_out_p, blocks_c.reshape(-1), slot_alias])
+            st = self.input_table._server_table
+            if multihost:
+                # multihost descriptor: HOST args only (the transaction
+                # uploads them on every rank)
+                worker, scalars = st._option_host(opt)
+            else:
+                worker, scalars = st._option_consts(opt)
+                packed = async_upload(packed, self.device)
             h = self.input_table.transact_device_async(
                 self._txn_name, [self.output_table],
                 args=(packed, chunk_draws, lr, scale, worker, scalars,

@@ -1,6 +1,11 @@
-"""Device placement (:mod:`.mesh`)."""
+"""Device placement and the world's rank mesh (:mod:`.mesh`)."""
 
-from multiverso_tpu_torch.parallel.mesh import (build_device, pad_to_multiple,
-                                                padded_cols, shard_ranges)
+from multiverso_tpu_torch.parallel.mesh import (RankMesh, build_device,
+                                                build_mesh, pad_to_multiple,
+                                                padded_cols, parse_mesh_shape,
+                                                replicated, shard_ranges,
+                                                table_sharding)
 
-__all__ = ["build_device", "pad_to_multiple", "padded_cols", "shard_ranges"]
+__all__ = ["RankMesh", "build_device", "build_mesh", "pad_to_multiple",
+           "padded_cols", "parse_mesh_shape", "replicated", "shard_ranges",
+           "table_sharding"]

@@ -2,13 +2,19 @@
 
 The JAX package places every table on a ``jax.sharding.Mesh`` whose
 ``server`` axis is the reference's server ranks. Here one torch device is
-one server shard, so placement reduces to picking that device. The layout
-helpers keep the JAX package's semantics.
+one server shard, so in one process placement reduces to picking that
+device. In a multi-process lockstep world (``runtime/multihost.py``) the
+mesh is the world's ranks, one device each: :func:`build_mesh` lays them
+out in the ``mesh_shape`` flag's shape, and :func:`table_sharding` gives a
+rank its contiguous row range of a table (``shard_ranges``: equal chunks,
+the remainder to the last rank), where the JAX package split the rows over
+its mesh's devices. The layout helpers keep the JAX package's semantics.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +24,63 @@ from multiverso_tpu_torch import log
 #: Row vectors are a whole number of these bytes: the row kernels move one
 #: 16-byte vector per thread (``csrc/rows.cu``).
 VECTOR_BYTES = 16
+
+
+def parse_mesh_shape(text: str) -> Optional[Tuple[int, ...]]:
+    """Parse '2x4'-style mesh shape flags; empty → None (auto 1-D)."""
+    text = text.strip()
+    if not text:
+        return None
+    return tuple(int(tok) for tok in text.replace("*", "x").split("x"))
+
+
+@dataclass(frozen=True)
+class RankMesh:
+    """A world's ranks laid out on named axes (one device per rank): the
+    counterpart of the JAX package's device mesh. ``ranks`` holds the rank
+    at each mesh position."""
+
+    ranks: np.ndarray
+    axis_names: Tuple[str, ...]
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.ranks.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.ranks.size)
+
+
+def build_mesh(world: int = 1, shape: Optional[Tuple[int, ...]] = None,
+               axis_names: Sequence[str] = ("server",)) -> RankMesh:
+    """The world's ``world`` ranks in ``shape`` (auto: 1-D over every
+    rank, trailing axes of size 1). A shape that does not hold exactly
+    the world's ranks is fatal."""
+    if shape is None:
+        shape = (int(world),) + (1,) * (len(axis_names) - 1)
+    if len(shape) != len(axis_names):
+        log.fatal("mesh_shape %s has %d axes but mesh_axes names %d (%s)",
+                  "x".join(map(str, shape)), len(shape), len(axis_names),
+                  ",".join(axis_names))
+    if int(np.prod(shape)) != int(world):
+        log.fatal("mesh_shape %s holds %d ranks; the world has %d",
+                  "x".join(map(str, shape)), int(np.prod(shape)), world)
+    return RankMesh(np.arange(int(world)).reshape(shape), tuple(axis_names))
+
+
+def table_sharding(total: int, rank: int = 0, world: int = 1
+                   ) -> Tuple[int, int]:
+    """Rank ``rank``'s row range ``[lo, hi)`` of a ``total``-row table
+    split over ``world`` ranks (reference analog: range sharding over
+    server ranks, ``src/table/matrix_table.cpp:25-45``)."""
+    return shard_ranges(int(total), int(world))[int(rank)]
+
+
+def replicated(total: int) -> Tuple[int, int]:
+    """The row range of a table every rank holds whole (the KV and sparse
+    kinds): all of it."""
+    return 0, int(total)
 
 
 def build_device(spec: str) -> torch.device:

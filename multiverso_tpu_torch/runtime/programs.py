@@ -9,7 +9,11 @@ A transaction descriptor that must be host-serializable cannot carry a
 Python closure. Programs are therefore registered BY NAME, on every
 process, before any transaction references them; a descriptor carries the
 name plus host arguments, and each process resolves the name to its own
-locally-built function. ``mvt.shutdown`` clears the registry, so no
+locally-built function. In a multi-process lockstep world
+(``runtime/multihost.py``) a named transaction is the one device
+transaction that crosses ranks (the leader refuses a closure): every rank
+runs it on its own row shards, with host arguments, and the origin's own
+run gives the reply. ``mvt.shutdown`` clears the registry, so no
 program keeps the tables of a stopped runtime alive. See
 :meth:`multiverso_tpu_torch.tables.matrix_table.MatrixWorker.transact_device_async`.
 """

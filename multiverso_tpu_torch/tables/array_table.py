@@ -27,6 +27,13 @@ distinct from the table and from each other.
 Live migration (``extract_range``/``absorb_range``): the transfer reads
 the logical elements to host memory, and the recipient writes them into
 its existing tensor in place (the JAX table rebinds a fresh array).
+
+In a multi-process lockstep world (``runtime/multihost.py``) each rank
+holds elements ``[lo, hi)`` (``Zoo.row_range``) and their updater state:
+an Add applies the rank's slice of the replayed delta, a Get or snapshot
+assembles the ranks' ranges on the process group, a restore loads each
+rank's range. The device and leaf forms are off there
+(``supports_device_io`` False): lockstep descriptors carry host data.
 """
 
 from __future__ import annotations
@@ -96,10 +103,16 @@ class ArrayServer(ServerTable):
         self.dtype = np.dtype(dtype)
         self.torch_dtype = torch_dtype(self.dtype)
         self.num_workers = num_workers if num_workers is not None else zoo.num_workers
-        self.padded = mesh_lib.pad_to_multiple(self.size, zoo.num_servers)
+        # this rank's elements [lo, hi) (all of them in one process)
+        self.multihost = zoo.multihost
+        self.lo, self.hi = zoo.row_range(self.size)
+        self.ranges = mesh_lib.shard_ranges(self.size, zoo.size)
+        self.local = self.hi - self.lo
+        self.padded = self.local
         init = np.zeros(self.padded, dtype=self.dtype)
         if init_value is not None:
-            init[: self.size] = np.asarray(init_value, dtype=self.dtype)
+            init[: self.local] = np.asarray(
+                init_value, dtype=self.dtype).reshape(-1)[self.lo:self.hi]
         self.data = torch.from_numpy(init).to(self.device)
         self.updater = get_updater(self.dtype, updater_type)
         self.states = _make_states(self.updater, (self.padded,),
@@ -184,6 +197,7 @@ class ArrayServer(ServerTable):
             # servers: the caller follows with a gated Get)
             if kind not in ("leaves", "leaves_sync", "leaves_push"):
                 log.fatal("ArrayTable: unknown request form %r", kind)
+            self._refuse_sharded(kind)
             flats, option = request[1:-2], request[-2]
             for flat in flats:
                 if flat.numel() != self.padded:
@@ -203,6 +217,7 @@ class ArrayServer(ServerTable):
             delta, option = request
         option = option or AddOption()
         if isinstance(delta, torch.Tensor):
+            self._refuse_sharded("add(device)")
             # device add: the delta never touches the host
             delta = delta.reshape(-1).to(self.device, self.torch_dtype)
             size = delta.numel()
@@ -213,12 +228,13 @@ class ArrayServer(ServerTable):
             log.fatal("ArrayTable.add: delta size %d != table size %d",
                       size, self.size)
         if not isinstance(delta, torch.Tensor):
-            delta = async_upload(host, self.device)  # a copy: caller may reuse host
-        if self.padded != self.size:
-            delta = torch.nn.functional.pad(delta, (0, self.padded - self.size))
+            # a copy: caller may reuse host. This rank's slice only
+            delta = async_upload(np.ascontiguousarray(host[self.lo:self.hi]),
+                                 self.device)
         worker, scalars = self._option_consts(option)
         self._update(self.data, self.states, delta, worker, scalars)
         if want_get:
+            self._refuse_sharded("add+get(device)")
             # fused reply: the post-add global value, still on the device
             return self._device_value()
         return None
@@ -231,12 +247,28 @@ class ArrayServer(ServerTable):
         if isinstance(request, tuple) and isinstance(request[0], str):
             # ("leaves", option, key): the whole padded value, split into
             # the leaves on the worker side
+            self._refuse_sharded("get(leaves)")
             return self.updater.access(self.data).clone()
         if isinstance(request, tuple):  # in-process device-out form
             _option, device_out = request
             if device_out:
+                self._refuse_sharded("get(device)")
                 return self._device_value()
-        return self._host_read(self.updater.access(self.data)[: self.size])
+        return self.logical_host(self.updater.access(self.data))
+
+    def logical_host(self, arr: torch.Tensor) -> np.ndarray:
+        """Host copy of an element-shaped tensor's logical part (last
+        axis), assembled across the ranks when sharded (collective: on the
+        lockstep stream only)."""
+        local = self._host_read(arr[..., : self.local])
+        if self.multihost is None:
+            return local
+        return self.multihost.assemble(local, self.ranges, axis=local.ndim - 1)
+
+    def _refuse_sharded(self, what: str) -> None:
+        if self.multihost is not None:
+            log.fatal("ArrayTable.%s is unsupported on a table whose "
+                      "elements are split over a multi-process world", what)
 
     def remote_spec(self):
         return {"kind": "array", "size": self.size, "dtype": self.dtype.str}
@@ -244,9 +276,9 @@ class ArrayServer(ServerTable):
     # -- checkpoint --------------------------------------------------------
     def store(self, stream) -> None:
         from multiverso_tpu_torch.checkpoint import write_array, write_state_dict
-        write_array(stream, self._host_read(self.data[: self.size]))
+        write_array(stream, self.logical_host(self.data))
         write_state_dict(stream, {
-            name: self._host_read(arr[:, : self.size])
+            name: self.logical_host(arr)
             for name, arr in self.states.items()})
 
     def load(self, stream) -> None:
@@ -256,20 +288,25 @@ class ArrayServer(ServerTable):
             log.fatal("ArrayTable.load: size mismatch %d != %d", arr.size, self.size)
         # in place: functions that closed over the tensors see the restore
         self.data.zero_()
-        self.data[: self.size].copy_(torch.from_numpy(
-            arr.reshape(-1).astype(self.dtype, copy=False)))
-        load_states(self.states, read_state_dict(stream), (self.size,))
+        self.data[: self.local].copy_(torch.from_numpy(np.ascontiguousarray(
+            arr.reshape(-1)[self.lo:self.hi].astype(self.dtype, copy=False))))
+        states = {name: (got[:, self.lo:self.hi] if got.ndim == 2
+                         and got.shape[1] == self.size else got)
+                  for name, got in read_state_dict(stream).items()}
+        load_states(self.states, states, (self.local,))
 
     # -- live migration (shard/reshard.py) ---------------------------------
     def extract_range(self, lo: int, hi: int) -> np.ndarray:
         """Raw values of shard-local elements [lo, hi), read to a host
         copy — the migration transfer unit (updater state excluded: the
         recipient's starts at zero, the reference's documented reset)."""
+        self._refuse_sharded("extract_range")
         return self._host_read(self.data[int(lo):int(hi)])
 
     def absorb_range(self, start: int, values) -> None:
         """Write raw values at [start, start+len) in place, bypassing
         updaters — the recipient side of extract_range."""
+        self._refuse_sharded("absorb_range")
         values = np.asarray(values, dtype=self.dtype).reshape(-1)
         if not values.flags.writeable:  # a decoded wire buffer
             values = values.copy()
@@ -320,6 +357,10 @@ class ArrayWorker(WorkerTable):
         self._server_table = server or ArrayServer(
             size, dtype, updater_type, init_value=init_value)
         self._register(self._server_table)
+        if Zoo.instance().multihost is not None:
+            # device IO exchanges tensors with the dispatcher; lockstep
+            # descriptors must be host-serializable — host paths only
+            self.supports_device_io = False
 
     # -- API (mirrors reference ArrayWorker + python binding handler) -------
     def get(self, option: Optional[GetOption] = None) -> np.ndarray:
@@ -346,6 +387,7 @@ class ArrayWorker(WorkerTable):
     def get_device(self) -> torch.Tensor:
         """A copy of the live device tensor (padding included). Not ordered
         with queued Adds; use :meth:`get_device_async` for that."""
+        self._require_device_io()
         return self._server_table.data.clone()
 
     def get_device_async(self, option: Optional[GetOption] = None) -> int:

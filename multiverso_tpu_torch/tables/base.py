@@ -166,6 +166,12 @@ class WorkerTable:
 class ServerTable:
     """Device-resident table state on the runtime's ``torch.device``."""
 
+    def _unwrapped(self):
+        """This server table with any lockstep wrapper peeled off: the
+        identity here; a multihost leader's ``LockstepTable`` forwards it
+        to its inner table."""
+        return self
+
     _OPT_CACHE_MAX = 256
 
     def __init__(self) -> None:
@@ -183,6 +189,12 @@ class ServerTable:
         self._opt_cache: "OrderedDict" = OrderedDict()
         self._opt_cache_lock = threading.Lock()
 
+    def _option_host(self, option):
+        """(worker index, scalars envelope as a float32 numpy array) for an
+        AddOption: the host form of :meth:`_option_consts`."""
+        worker = max(option.worker_id, 0) % max(1, self.num_workers)
+        return worker, np.asarray(option.scalars(), np.float32)
+
     def _option_consts(self, option):
         """(worker index, scalars envelope as a float32 device tensor) for
         an AddOption, cached so identical envelopes upload once. Requires
@@ -195,10 +207,8 @@ class ServerTable:
                 self._opt_cache.move_to_end(key)
                 return cached
         # build outside the lock; a racing duplicate insert is harmless
-        scalars = torch.tensor(option.scalars(), dtype=torch.float32,
-                               device=self.device)
-        worker = max(option.worker_id, 0) % max(1, self.num_workers)
-        cached = (worker, scalars)
+        worker, scalars = self._option_host(option)
+        cached = (worker, torch.from_numpy(scalars).to(self.device))
         with self._opt_cache_lock:
             self._opt_cache[key] = cached
             if len(self._opt_cache) > self._OPT_CACHE_MAX:
@@ -217,7 +227,10 @@ class ServerTable:
     def _host_read(tensor: torch.Tensor) -> np.ndarray:
         """Device->host read of table state into a fresh numpy array. Always
         a copy — on the CPU too — so later in-place Adds never show through
-        a reply."""
+        a reply. This rank's part only: a table whose rows are split over a
+        multi-process world assembles the logical value from every rank's
+        read (``MatrixServer.logical_host``, ``ArrayServer.logical_host``),
+        on the lockstep thread only."""
         return tensor.detach().to("cpu", copy=True).numpy()
 
     def merge_add_requests(self, requests):

@@ -20,6 +20,13 @@ Three server backends behind one worker API:
 
 Checkpoints of all three are the live pairs sorted by key, byte for byte
 as the JAX package writes them, so they interchange.
+
+In a multi-process lockstep world (``runtime/multihost.py``) every rank
+holds a whole replica of a KV table and replays the same Adds, growth
+included: Gets need no exchange. On the card the device hash's claim
+rounds may settle a contended slot differently on each rank, so the
+ranks' slot layouts can differ while their key->value maps and live
+counts agree.
 """
 
 from __future__ import annotations

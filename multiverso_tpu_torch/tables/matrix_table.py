@@ -29,6 +29,20 @@ closed over them sees the restored values.
 (``extract_range``/``absorb_range``) moves logical rows only: the
 transfer is read to host memory, and the recipient writes it into its
 existing tensor in place (the JAX table rebinds a fresh array).
+
+In a multi-process lockstep world (``runtime/multihost.py``) each rank
+holds rows ``[row_lo, row_hi)`` (``Zoo.row_range``) plus its own sentinel
+row, and the updater state of those rows; the whole logical table exists
+only as the ranks' union. Every rank replays the same requests: an Add
+applies the rows this rank owns (ids made local, one scatter on its
+shard, no collective); a Get gathers its owned rows with the gather
+kernel and the ranks exchange them on the process group
+(``MultihostRuntime.exchange_rows``), so the origin gets the whole reply;
+whole-table reads and snapshots assemble the ranks' ranges; a restore
+loads each rank's range. Callers still pad with ``sentinel_row`` (the
+global ``num_row``); the shard's own sentinel is ``local_sentinel``. Device
+IO is off (``supports_device_io`` False): the lockstep descriptors carry
+host data. Live migration and queries refuse a sharded table.
 """
 
 from __future__ import annotations
@@ -99,6 +113,43 @@ def _make_row_update(updater: Updater):
     return f
 
 
+# ``init_range`` draws: rows per block (about 4M values, so a rank's
+# transient draw stays one block whatever the table's size) and each
+# block's seed. Block 0 keeps the table's own seed.
+_INIT_BLOCK_VALUES = 1 << 22
+
+
+def _init_block_rows(num_col: int) -> int:
+    return max(1, _INIT_BLOCK_VALUES // max(1, int(num_col)))
+
+
+def _init_block_seed(seed: int, block: int) -> int:
+    if block == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, block]).generate_state(
+        1, np.uint64)[0] >> 1)
+
+
+def draw_range_rows(out: torch.Tensor, row_lo: int, num_row: int,
+                    init_range: Tuple[float, float], seed: int) -> None:
+    """Fill ``out`` with rows ``[row_lo, row_lo + len(out))`` of a
+    ``num_row``-row table drawn uniform in ``init_range`` from ``seed``.
+    Only the blocks that meet those rows are drawn, one at a time."""
+    row_hi, num_col = row_lo + out.shape[0], out.shape[1]
+    draw_dtype = out.dtype if out.dtype.is_floating_point else torch.float32
+    block = _init_block_rows(num_col)
+    for start in range(row_lo - row_lo % block, row_hi, block):
+        stop = min(start + block, num_row)
+        gen = torch.Generator(device=out.device)
+        gen.manual_seed(_init_block_seed(seed, start // block))
+        draws = torch.empty((stop - start, num_col), dtype=draw_dtype,
+                            device=out.device).uniform_(*init_range,
+                                                        generator=gen)
+        lo, hi = max(start, row_lo), min(stop, row_hi)
+        out[lo - row_lo: hi - row_lo] = draws[lo - start: hi - start].to(
+            out.dtype)
+
+
 class MatrixServer(ServerTable):
     def __init__(self, num_row: int, num_col: int, dtype: Any = np.float32,
                  updater_type: str = "", num_workers: Optional[int] = None,
@@ -113,30 +164,36 @@ class MatrixServer(ServerTable):
         self.dtype = np.dtype(dtype)
         self.torch_dtype = torch_dtype(self.dtype)
         self.num_workers = num_workers if num_workers is not None else zoo.num_workers
-        # one scratch row past num_row: padded id buckets aim there
-        self.padded_rows = self.num_row + 1
+        # this rank's rows [row_lo, row_hi) of the logical table (all of
+        # them in one process) and the world's ranges; multihost: None in
+        # one process
+        self.multihost = zoo.multihost
+        self.row_lo, self.row_hi = zoo.row_range(self.num_row)
+        self.row_ranges = mesh_lib.shard_ranges(self.num_row, zoo.size)
+        self.local_rows = self.row_hi - self.row_lo
+        # one scratch row past the shard's rows: padded id buckets aim
+        # there. Callers pad with the global sentinel_row (num_row)
+        self.padded_rows = self.local_rows + 1
         self.sentinel_row = self.num_row
+        self.local_sentinel = self.local_rows
         self.padded_cols = mesh_lib.padded_cols(self.num_col, self.dtype)
 
         self.data = torch.zeros((self.padded_rows, self.padded_cols),
                                 dtype=self.torch_dtype, device=self.device)
+        mine = slice(self.row_lo, self.row_hi)
         if init_value is not None:
             init = np.asarray(init_value, dtype=self.dtype).reshape(
-                self.num_row, self.num_col)
-            self.data[: self.num_row, : self.num_col] = torch.from_numpy(
-                init).to(self.device)
+                self.num_row, self.num_col)[mine]
+            self.data[: self.local_rows, : self.num_col] = torch.from_numpy(
+                np.ascontiguousarray(init)).to(self.device)
         elif init_range is not None:
             # random-init server ctor overload (reference: matrix_table.cpp:
-            # 372-384), drawn on the device from a generator seeded with
-            # ``seed`` — not the JAX package's numpy draws
-            lo, hi = init_range
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(seed))
-            draw_dtype = (self.torch_dtype if self.torch_dtype.is_floating_point
-                          else torch.float32)
-            draws = torch.empty((self.num_row, self.num_col), dtype=draw_dtype,
-                                device=self.device).uniform_(lo, hi, generator=gen)
-            self.data[: self.num_row, : self.num_col] = draws.to(self.torch_dtype)
+            # 372-384), drawn on the device — not the JAX package's numpy
+            # draws. Drawn in blocks of rows, each from its own seed, so a
+            # rank draws only the blocks that meet its rows and every rank's
+            # range holds the values one process would
+            draw_range_rows(self.data[: self.local_rows, : self.num_col],
+                            self.row_lo, self.num_row, init_range, int(seed))
 
         self.updater = get_updater(self.dtype, updater_type)
         self.states = _make_states(self.updater,
@@ -163,6 +220,85 @@ class MatrixServer(ServerTable):
         self._negate = isinstance(self.updater, SGDUpdater)
         self._row_update = _make_row_update(self.updater)
 
+    # -- row sharding (multi-process worlds) -------------------------------
+    def own_rows(self, ids: np.ndarray) -> Tuple[Optional[np.ndarray],
+                                                  np.ndarray]:
+        """``(pos, local_ids)``: the positions in ``ids`` of the rows this
+        rank holds and their shard-local ids. In one process every row is
+        local: ``(None, ids)``. Sentinel pads (``num_row``) are owned by
+        nobody."""
+        if self.multihost is None:
+            return None, ids
+        ids = np.asarray(ids)
+        pos = np.nonzero((ids >= self.row_lo) & (ids < self.row_hi))[0]
+        return pos, (ids[pos] - self.row_lo).astype(np.int32)
+
+    def row_owner(self, ids: np.ndarray) -> np.ndarray:
+        """The rank holding each logical row id."""
+        starts = np.asarray([lo for lo, _ in self.row_ranges])
+        return (np.searchsorted(starts, np.asarray(ids), side="right")
+                - 1).astype(np.int64)
+
+    def rows_host(self, ids: np.ndarray) -> np.ndarray:
+        """Logical rows ``ids`` as a host ``(n, num_col)`` array. Sharded:
+        each rank gathers the rows it holds (the gather kernel) and the
+        ranks exchange them — collective, so on the lockstep stream
+        only."""
+        ids = np.asarray(ids, dtype=np.int32).reshape(-1)
+        pos, local = self.own_rows(ids)
+        if pos is None or len(local):
+            ids_p, _, n = self._bucket_ids(local, None)
+            mine = self._host_read(gather_rows(self.data, ids_p)[:n, : self.num_col])
+        else:
+            mine = np.zeros((0, self.num_col), self.dtype)
+        if pos is None:
+            return mine
+        return self.multihost.exchange_rows(self.row_owner(ids), mine)
+
+    def logical_host(self, arr: torch.Tensor, axis: int = 0) -> np.ndarray:
+        """Host copy of a row-shaped device tensor's logical block (rows
+        ``[0, local_rows)`` along ``axis``, logical columns last),
+        assembled across the ranks when sharded (collective)."""
+        index = [slice(None)] * arr.dim()
+        index[axis] = slice(0, self.local_rows)
+        index[-1] = slice(0, self.num_col)
+        local = self._host_read(arr[tuple(index)])
+        if self.multihost is None:
+            return local
+        return self.multihost.assemble(local, self.row_ranges, axis=axis)
+
+    def candidate_rows(self, ids: np.ndarray) -> torch.Tensor:
+        """A ``(len(ids), padded_cols)`` device tensor of logical rows
+        ``ids`` for a transaction's compact space; sentinel pads
+        (``num_row``) read as zero rows, as the sentinel row does.
+        Sharded: the ranks' held rows, exchanged (collective)."""
+        ids = np.asarray(ids, dtype=np.int32).reshape(-1)
+        live = np.nonzero(ids < self.num_row)[0]
+        host = np.zeros((len(ids), self.padded_cols), self.dtype)
+        host[live, : self.num_col] = self.rows_host(ids[live])
+        return async_upload(host, self.device)
+
+    def owned_push(self, ids: np.ndarray, delta: torch.Tensor
+                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """This rank's share of a transaction's push on a row-split table:
+        the rows of the logical ``ids`` (unique apart from sentinel pads)
+        it holds, as shard-local ids bucketed to a power of two with the
+        shard's sentinel, and their ``delta`` rows with zero pads.
+        ``(None, None)`` when it holds none of them."""
+        pos, local = self.own_rows(np.asarray(ids).reshape(-1))
+        if not len(local):
+            return None, None
+        ids_p, _, n = self._bucket_ids(local, None)
+        out = torch.zeros((ids_p.shape[0], delta.shape[1]), dtype=delta.dtype,
+                          device=delta.device)
+        out[:n] = delta[torch.as_tensor(pos, device=delta.device)]
+        return ids_p, out
+
+    def _refuse_sharded(self, what: str) -> None:
+        if self.multihost is not None:
+            log.fatal("Matrix.%s is unsupported on a table whose rows are "
+                      "split over a multi-process world", what)
+
     def _signed(self, delta: torch.Tensor) -> torch.Tensor:
         """A linear updater's delta as the row scatter adds it."""
         return -delta if self._negate else delta
@@ -185,13 +321,14 @@ class MatrixServer(ServerTable):
     def _bucket_ids(self, ids: np.ndarray, values: Optional[np.ndarray],
                     ensure_pad: bool = False
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
-        """Pad (ids, values) to a power-of-two bucket aimed at the sentinel
-        row and upload them. ``ensure_pad`` keeps at least one sentinel slot
-        (device-out gets hand the bucket to the caller as a compact
-        training space whose masked ops need a non-live row)."""
+        """Pad (shard-local ids, values) to a power-of-two bucket aimed at
+        the shard's sentinel row and upload them. ``ensure_pad`` keeps at
+        least one sentinel slot (device-out gets hand the bucket to the
+        caller as a compact training space whose masked ops need a
+        non-live row)."""
         n = len(ids)
         bucket = max(next_pow2(n + 1 if ensure_pad else n), ROW_GROUP)
-        ids_p = np.full(bucket, self.sentinel_row, dtype=np.int32)
+        ids_p = np.full(bucket, self.local_sentinel, dtype=np.int32)
         ids_p[:n] = ids
         vals_p = None
         if values is not None:
@@ -256,7 +393,7 @@ class MatrixServer(ServerTable):
             host = np.asarray(values, dtype=self.dtype).reshape(
                 self.num_row, self.num_col)
             delta = np.zeros((self.padded_rows, self.padded_cols), dtype=self.dtype)
-            delta[: self.num_row, : self.num_col] = host
+            delta[: self.local_rows, : self.num_col] = host[self.row_lo:self.row_hi]
             self._whole_update(self.data, self.states,
                                async_upload(delta, self.device), worker, scalars)
             touched: Optional[np.ndarray] = None
@@ -270,12 +407,16 @@ class MatrixServer(ServerTable):
             # and a stateful updater applies once per row. Merging on the
             # CPU as well keeps the tests on the host code the card runs.
             row_ids, values = merge_duplicate_rows(row_ids, values)
-            ids_p, vals_p, _ = self._bucket_ids(row_ids, values)
-            if self._linear:
-                scatter_add_rows(self.data, ids_p, self._signed(vals_p))
-            else:
-                self._row_update(self.data, self.states, ids_p, vals_p,
-                                 worker, scalars)
+            pos, local = self.own_rows(row_ids)
+            if pos is not None:
+                values = values[pos]  # this rank's rows; the rest are peers'
+            if pos is None or len(local):
+                ids_p, vals_p, _ = self._bucket_ids(local, values)
+                if self._linear:
+                    scatter_add_rows(self.data, ids_p, self._signed(vals_p))
+                else:
+                    self._row_update(self.data, self.states, ids_p, vals_p,
+                                     worker, scalars)
             touched = row_ids
         if self.is_sparse:
             with self._std_lock:
@@ -295,8 +436,9 @@ class MatrixServer(ServerTable):
                              or int(row_ids.max()) > self.sentinel_row):
             log.fatal("Matrix.add(device): row id out of range [0, %d]",
                       self.sentinel_row)
+        self._refuse_sharded("add(device)")
         bucket = max(next_pow2(n), ROW_GROUP)
-        ids_p = np.full(bucket, self.sentinel_row, dtype=np.int32)
+        ids_p = np.full(bucket, self.local_sentinel, dtype=np.int32)
         ids_p[:n] = row_ids
         vals_p = torch.zeros((bucket, self.padded_cols), dtype=self.torch_dtype,
                              device=self.device)
@@ -328,7 +470,10 @@ class MatrixServer(ServerTable):
         the table ids to its server tables (``runtime/programs.py``)."""
         _, name, other_ids, args, touched = request
         server = Zoo.instance().server
-        others = [server.table(tid) for tid in other_ids]
+        # the other tables are state holders here, not dispatch points: a
+        # leader's lockstep wrapper is peeled off (its descriptor is this
+        # table's)
+        others = [server.table(tid)._unwrapped() for tid in other_ids]
         return ("transact", resolve_program(name), others, args, touched)
 
     def _process_transact(self, request):
@@ -382,13 +527,20 @@ class MatrixServer(ServerTable):
             if self.is_sparse and self._is_worker(option):
                 return self._sparse_get(option)
             # admin whole-table reads take the dense path
-            out = self.updater.access(self.data)
-            return self._host_read(out[: self.num_row, : self.num_col])
+            return self.logical_host(self.updater.access(self.data))
         row_ids = np.asarray(row_ids, dtype=np.int32).reshape(-1)
         if not device_out:
             # device gets may carry sentinel-aimed pad ids (the compact
             # training space contract); host gets may not
             self._check_row_range(row_ids, "get")
+        if self.multihost is not None:
+            if device_out:
+                self._refuse_sharded("get(device)")
+            rows = self.rows_host(row_ids)
+            if self.is_sparse and self._is_worker(option):
+                with self._std_lock:
+                    self._up_to_date[option.worker_id, row_ids] = True
+            return rows
         ids_p, _, n = self._bucket_ids(row_ids, None, ensure_pad=device_out)
         gathered = gather_rows(self.data, ids_p)
         if self.is_sparse and self._is_worker(option):
@@ -409,11 +561,8 @@ class MatrixServer(ServerTable):
         if len(stale) == 0:
             return stale, np.zeros((0, self.num_col), dtype=self.dtype)
         if len(stale) == self.num_row:
-            return stale, self._host_read(
-                self.data[: self.num_row, : self.num_col])
-        ids_p, _, n = self._bucket_ids(stale, None)
-        rows = self._host_read(gather_rows(self.data, ids_p)[:n, : self.num_col])
-        return stale, rows
+            return stale, self.logical_host(self.data)
+        return stale, self.rows_host(stale)
 
     def remote_spec(self):
         return {"kind": "matrix", "num_row": self.num_row,
@@ -425,10 +574,9 @@ class MatrixServer(ServerTable):
     # -- checkpoint --------------------------------------------------------
     def store(self, stream) -> None:
         from multiverso_tpu_torch.checkpoint import write_array, write_state_dict
-        logical = (slice(0, self.num_row), slice(0, self.num_col))
-        write_array(stream, self._host_read(self.data[logical]))
+        write_array(stream, self.logical_host(self.data))
         write_state_dict(stream, {
-            name: self._host_read(arr[(slice(None),) + logical])
+            name: self.logical_host(arr, axis=1)
             for name, arr in self.states.items()})
 
     def load(self, stream) -> None:
@@ -438,11 +586,15 @@ class MatrixServer(ServerTable):
             log.fatal("Matrix.load: %d values for a %d x %d table", arr.size,
                       self.num_row, self.num_col)
         self.data.zero_()  # the column pads and the sentinel row
-        logical = arr.reshape(self.num_row, self.num_col)
-        self.data[: self.num_row, : self.num_col].copy_(
-            torch.from_numpy(logical.astype(self.dtype, copy=False)))
-        load_states(self.states, read_state_dict(stream),
-                    (self.num_row, self.num_col))
+        mine = slice(self.row_lo, self.row_hi)
+        logical = arr.reshape(self.num_row, self.num_col)[mine]
+        self.data[: self.local_rows, : self.num_col].copy_(
+            torch.from_numpy(np.ascontiguousarray(
+                logical.astype(self.dtype, copy=False))))
+        states = {name: (got[:, mine] if got.ndim == 3
+                         and got.shape[1] == self.num_row else got)
+                  for name, got in read_state_dict(stream).items()}
+        load_states(self.states, states, (self.local_rows, self.num_col))
         if self.is_sparse:
             # staleness is NOT restorable state: it certifies worker-side
             # client caches the snapshot does not cover — a restored
@@ -457,12 +609,14 @@ class MatrixServer(ServerTable):
         row and the column pads never travel. Updater state is excluded:
         the recipient's starts at zero (the reference's documented reset,
         like a v1 checkpoint restore)."""
+        self._refuse_sharded("extract_range")
         return self._host_read(self.data[int(lo):int(hi), : self.num_col])
 
     def absorb_range(self, start: int, values) -> None:
         """Write raw rows at [start, start+len) into the existing tensor,
         in place — the recipient side of extract_range. Bypasses updaters:
         migrated values are state, not gradients."""
+        self._refuse_sharded("absorb_range")
         values = np.asarray(values, dtype=self.dtype).reshape(-1, self.num_col)
         if not values.flags.writeable:  # a decoded wire buffer
             values = values.copy()
@@ -500,6 +654,10 @@ class MatrixWorker(WorkerTable):
             init_range=init_range, seed=seed, is_sparse=is_sparse,
             is_pipelined=is_pipelined)
         self._register(self._server_table)
+        if Zoo.instance().multihost is not None:
+            # device IO exchanges tensors with the dispatcher; lockstep
+            # descriptors must be host-serializable — host paths only
+            self.supports_device_io = False
         self._init_client_state(self._server_table.is_pipelined
                                 if self.is_sparse else False,
                                 self._server_table.num_workers)
@@ -700,4 +858,5 @@ class MatrixWorker(WorkerTable):
     def get_device(self) -> torch.Tensor:
         """A copy of the live device table (padding and sentinel row
         included). Not ordered with queued Adds."""
+        self._require_device_io()
         return self._server_table.data.clone()

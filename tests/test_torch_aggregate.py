@@ -18,7 +18,6 @@ from multiverso_tpu.config import FLAGS as JAX_FLAGS
 
 import multiverso_tpu_torch as mvt
 from multiverso_tpu_torch.config import FLAGS as TORCH_FLAGS
-from multiverso_tpu_torch.runtime.zoo import Zoo as TZoo
 
 JOIN_S = 60
 LEAF_SHAPES = [(4, 3, 3, 3), (4,), (10, 4)]
@@ -191,10 +190,29 @@ def test_aggregate_mixed_host_and_device_is_fatal():
 
 
 def test_aggregate_across_processes_is_not_ported(monkeypatch):
+    """The name is from before the cross-process leg was ported; it now
+    holds that leg. In a multi-process world the reducer's local sum goes
+    through the runtime's host allreduce (its real form is driven across
+    processes in tests/test_torch_multihost_modes.py) and comes back in
+    the caller's shape: host arrays, leaf lists, tensors on their device
+    in their dtype."""
     mvt.init(ma=True, device="cpu")
-    monkeypatch.setattr(TZoo, "size", property(lambda self: 2))
-    with pytest.raises(mvt.log.FatalError, match="across processes"):
-        mvt.aggregate(np.ones(2, np.float32))
+    seen = []
+
+    class Peer:  # the other rank contributes twice what this one does
+        def allreduce_host(self, leaves):
+            seen.append([np.array(x) for x in leaves])
+            return [x + 2 * x for x in leaves]
+
+    monkeypatch.setattr(mvt.Zoo.instance(), "multihost", Peer())
+    np.testing.assert_array_equal(mvt.aggregate(np.ones(2, np.float32)),
+                                  np.full(2, 3.0, np.float32))
+    got = mvt.aggregate([np.ones(2, np.float32), np.full(3, 2.0, np.float32)])
+    np.testing.assert_array_equal(got[1], np.full(3, 6.0, np.float32))
+    t = mvt.aggregate(torch.arange(4, dtype=torch.float64))
+    assert t.dtype == torch.float64 and t.device == torch.device("cpu")
+    assert torch.equal(t, 3 * torch.arange(4, dtype=torch.float64))
+    assert all(isinstance(x, np.ndarray) for leaves in seen for x in leaves)
 
 
 def test_aggregate_single_worker_returns_a_copy():

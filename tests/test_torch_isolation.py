@@ -23,7 +23,8 @@ PORT_FILES = sorted((REPO / "multiverso_tpu_torch").rglob("*.py")) + [
     REPO / "tests" / "torch_durable_primary_child.py"]
 EXAMPLES = ("resnet_asgd.py", "torch_asgd.py", "asgd_param_manager.py",
             "lda_topics.py", "word2vec_train.py", "logreg_train.py",
-            "ftrl_ctr.py", "word2vec_query.py", "addition_rnn.py")
+            "ftrl_ctr.py", "word2vec_query.py", "addition_rnn.py",
+            "multihost_ps.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -99,7 +100,9 @@ def test_import_pulls_in_no_jax():
             "multiverso_tpu_torch.autopilot.actuators",
             "multiverso_tpu_torch.autopilot.interlock",
             "multiverso_tpu_torch.autopilot.policy",
-            "multiverso_tpu_torch.autopilot.sensors"} <= set(loaded)
+            "multiverso_tpu_torch.autopilot.sensors",
+            "multiverso_tpu_torch.runtime.multihost",
+            "multiverso_tpu_torch.parallel.mesh"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -176,3 +179,14 @@ def test_shard_modules_are_checked():
         source = (REPO / "multiverso_tpu_torch" / name).read_text()
         assert '"multiverso_tpu_torch.shard._child"' in source
         assert "JAX_PLATFORMS" not in source
+
+
+def test_multihost_module_is_checked():
+    """The lockstep runtime is among the files whose imports are checked,
+    and it forms its world with torch.distributed, not jax.distributed."""
+    checked = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert "multiverso_tpu_torch/runtime/multihost.py" in checked
+    source = (REPO / "multiverso_tpu_torch" / "runtime"
+              / "multihost.py").read_text()
+    assert "dist.init_process_group(" in source
+    assert "JAX_PLATFORMS" not in source and "XLA_FLAGS" not in source

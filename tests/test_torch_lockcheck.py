@@ -173,19 +173,10 @@ def test_lockcheck_cycle_counts_and_dumps(lockcheck_session, tmp_path):
 
 # -- tools.mvlint on the port ---------------------------------------------------
 
-#: Flags of the modules still to be ported: ``native/`` (the allocator)
-#: and ``runtime/multihost.py`` with the mesh.
-QUEUED_FLAGS = {
-    "allocator_alignment", "allocator_type",
-    "mesh_axes", "mesh_shape",
-    "multihost_endpoint", "multihost_timeout", "multihost_token",
-    "multihost_window",
-}
-#: Catalogued metrics only those modules emit.
-QUEUED_METRICS = {
-    "FOLLOWER_FORWARD_MSG", "FOLLOWER_REPLAY_ADD_MSG",
-    "FOLLOWER_REPLAY_GET_MSG", "MULTIHOST_WINDOW_INFLIGHT",
-}
+#: Flags of the modules still to be ported: ``native/`` (the allocator).
+QUEUED_FLAGS = {"allocator_alignment", "allocator_type"}
+#: Catalogued metrics only those modules emit: none.
+QUEUED_METRICS = set()
 
 
 def test_port_lints_to_the_queued_modules_only():
