@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. The card (``nvidia-smi`` name and power limit), ``torch.version.cuda``
    and ``nvcc --version``.
-2. Build the CUDA kernels from ``multiverso_tpu_torch/csrc`` (first use).
+2. Build the CUDA kernels from ``multiverso_tpu_torch/csrc`` and the
+   native library from ``multiverso_tpu_torch/native`` (first use).
 3. Kernels: the scatter and the gather against their plain PyTorch
    versions on the card, bit for bit: on the main path's table (1M x 50,
    rows padded to whole 16-byte vectors) at every id bucket 64..65536 with
@@ -292,10 +293,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    table) per worker, equal bit for bit to the sum in the reference's
    order. Adds/s, Add and Get p50/p99, the Get exchange's ms, the control
    plane's ms an op, words/s, snapshot and restore seconds.
-20. The run's seconds, one JSON line listing every kernel (with its
-   launches in the shard processes, over phases 17 and 18 and in each
-   rank of phase 19), then the last line ``{"ok": true, "device":
-   {...}}``.
+20. Sequence parallelism and the native layer. Leg 1: a 4-rank gloo
+   world on the one card, each rank a process of this script
+   (``--ring-rank``) on its own gloo group: ring attention at a global T
+   of 16,384 (4,096 a rank; B 1, H 8, D 64, fp32) plain, causal and with a
+   relative-position ``bias_fn``, and the Ulysses reshard to heads and back
+   around attention, each gathered on rank 0 and held against
+   ``reference_attention`` on the card from the gathered inputs
+   (SP_FWD_TOL); the backward (dq, dk, dv, d(rel) of sum(out * w), causal
+   with the bias) at a global T of 2,048 against autograd through the
+   reference (SP_GRAD_TOL); forward, forward+backward, Ulysses, one hop
+   (and its host staging and gloo parts) and the reference in ms, each
+   rank's peak memory. Then the long-context LM twin at the JAX example's
+   defaults on 4 ranks: the loss falls, the echo accuracy is above 0.9
+   and the table holds the trained model after the sync. Leg 2: the
+   port's ``libmultiverso_tpu.so`` built from the sources, then from this
+   process through ctypes ``MV_Init`` on the card and configuration 1's
+   1M x 50 matrix: 1024-row Adds (integer deltas) and Gets through the C
+   API and then the Python API, every Get and the final whole table
+   bitwise equal to a numpy mirror, the table on the card, the scatter and
+   the gather launched by the C API's rounds (counted over those rounds
+   alone; the Python API's rounds are counted apart); the C client and the Lua FFI replay (the XOR net
+   learns) as child processes on the card where ``sysconfig`` shows a
+   shared libpython; the native codecs byte for byte against numpy
+   (sparse, dense, 4-bit); ``load_libsvm_native`` against the Python
+   parser on a generated file.
+21. The run's seconds, one JSON line listing every kernel (with its
+   launches in the shard processes, over phases 17 and 18, in each rank of
+   phase 19 and through phase 20's C API), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 It needs the card: without CUDA it exits 1 before printing any result.
 """
@@ -3809,6 +3835,10 @@ FAILOVER_CLIENTS = 2
 FAILOVER_HALF = 3                 # leg 3: acknowledged rounds before the kill
 STANDBY_LEASE_S = 2.0
 READ_BUDGET = 32                  # leg 4: read_staleness_records
+# leg 4's worker slots, on the primary and its replica alike: the writer, a
+# reader, and the slot of the reader before it, whose deregistration (fire
+# and forget) may still be in flight when the next reader registers
+READ_SLOTS = 3
 READ_ADDS = 96                    # leg 4: the writer's Adds
 READ_GETS = 64                    # leg 4: Gets per read preference
 PRIMARY_S = 180                   # a durable primary's limit for a step
@@ -4248,7 +4278,7 @@ def durable_replica_leg(mvt, rows, device: str, scratch: str,
     from multiverso_tpu_torch.dashboard import Dashboard
     from multiverso_tpu_torch.fault.inject import corrupt_table_row
     ep = primary.expect("serving", PRIMARY_S)
-    mvt.init(device=device, ps_role="server", remote_workers=2,
+    mvt.init(device=device, ps_role="server", remote_workers=READ_SLOTS,
              wal_dir=os.path.join(scratch, "replica"), heartbeat_seconds=0.2,
              read_staleness_records=budget)
     try:
@@ -4312,7 +4342,12 @@ def durable_replica_leg(mvt, rows, device: str, scratch: str,
             out[preference] = gets_of(preference)
         fallbacks = (Dashboard.counter_value("READ_PRIMARY_FALLBACKS")
                      - fallbacks0)
-        moved = primary_gets() - gets0
+        # a hedge's primary Get is not cancelled when the replica answers
+        # first: the last ones may still be queued on the primary here
+        moved, deadline = primary_gets() - gets0, time.monotonic() + PRIMARY_S
+        while moved < fallbacks and time.monotonic() < deadline:
+            time.sleep(0.05)
+            moved = primary_gets() - gets0
         if moved != fallbacks:
             raise AssertionError(f"leg 4: the primary served {moved} Gets, "
                                  f"the readers fell back {fallbacks} times")
@@ -4390,7 +4425,8 @@ def durable_phase(mvt, rows, device: str, card: str, scratch: str,
         ports = {k: free_port() for k in ("async", "bsp", "replica")}
         prims = {k: spawn_primary(
             scratch, f"primary_{k}", ports[k], os.path.join(scratch, f"p_{k}"),
-            device, sz["num_row"], sz["num_col"], "--remote-workers=2",
+            device, sz["num_row"], sz["num_col"],
+            f"--remote-workers={READ_SLOTS if k == 'replica' else 2}",
             *(("--sync",) if k == "bsp" else ())) for k in ports}
         try:
             t0 = time.perf_counter()
@@ -6377,6 +6413,476 @@ def multihost_phase(mvt, device: str, scratch: str,
     return m, launches
 
 
+# -- phase 20: sequence parallelism and the native layer -----------------------
+# Leg 1: four ranks of one gloo world on the one card, each a process of
+# this script (``--ring-rank``), run ring attention and the Ulysses reshard
+# on their blocks of one global sequence; rank 0 holds them against
+# ``reference_attention`` on the gathered inputs. Then the long-context LM
+# twin (its example, self-launching 4 ranks). Leg 2: the native library
+# from this process through ctypes, its C clients, codecs and reader.
+SP_RANKS = 4
+SP_T, SP_B, SP_H, SP_D = 16_384, 1, 8, 64   # global T; 4,096 a rank, fp32
+SP_GRAD_T = 2_048                           # the backward's global T
+SP_REPS = 3                                 # timed runs (after a warm-up)
+SP_FWD_TOL = 1e-4                           # ring vs reference, abs and rel
+SP_GRAD_TOL = 1e-3                          # dq, dk, dv, d(rel), abs and rel
+SP_SEED = 20
+SP_S = 600                                  # a rank's limit
+LM_CONFIG = dict(seq=256, dim=64, heads=4, vocab=32, batch=8, steps=300,
+                 lr=1e-2)                   # the JAX example's defaults
+LM_TABLE_GAP = 1e-6                         # init + (trained - init) in fp32
+NATIVE_ROUNDS = 64                          # C API 1024-row Add + Get rounds
+NATIVE_PY_ROUNDS = 16                       # the same through the Python API
+NATIVE_SEED = 20
+CODEC_FLOATS = 1_000_000
+LIBSVM_LINES = 100_000
+
+
+def sp_inputs(T: int, dev, seed: int, n: int = 3):
+    """``n`` global (B, T, H, D) fp32 tensors drawn on ``dev`` from
+    ``seed``: every rank draws the same ones."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((SP_B, T, SP_H, SP_D), generator=g, device=dev)
+            for _ in range(n)]
+
+
+def sp_rel(T: int, dev, seed: int):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return 0.5 * torch.randn((SP_H, 2 * T - 1), generator=g, device=dev)
+
+
+def sp_rel_bias(rel, T: int):
+    def bias_fn(q_pos, kv_pos):
+        return rel[:, q_pos[:, None] - kv_pos[None, :] + T - 1][None]
+    return bias_fn
+
+
+def sp_gap(got, want) -> dict:
+    """max |got - want|, and max |got - want| / (1 + |want|): within a
+    tolerance ``tol`` (abs and rel) exactly when the second is <= tol."""
+    d = (got - want).abs()
+    return {"max_abs_err": float(d.max()),
+            "max_rel_excess": float((d / (1.0 + want.abs())).max())}
+
+
+def ring_rank_main(argv) -> int:
+    """``chip_smoke.py --ring-rank RANK COORD_PORT OUTDIR``: one rank of
+    phase 20's ring world (its spec in ``OUTDIR/spec.json``). Writes
+    ``OUTDIR/rank<R>.json``."""
+    import torch.distributed as dist
+    from multiverso_tpu_torch.parallel import ring
+
+    rank, coord, outdir = int(argv[0]), argv[1], argv[2]
+    with open(os.path.join(outdir, "spec.json")) as f:
+        spec = json.load(f)
+    sz, world = spec["sizes"], spec["world"]
+    dev = torch.device(spec["device"])
+    on_card = dev.type == "cuda"
+    if not on_card:
+        torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{coord}",
+                            world_size=world, rank=rank)
+    group = dist.new_group(backend="gloo")   # the ring's own group
+    out = {"rank": rank, "device": str(dev)}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def timed(fn, reps=SP_REPS):
+        """(median ms over ``reps`` runs after one warm-up, last result);
+        every rank starts each run together."""
+        res = fn()
+        times = []
+        for _ in range(reps):
+            dist.barrier(group)
+            sync()
+            a = time.perf_counter()
+            res = fn()
+            sync()
+            times.append((time.perf_counter() - a) * 1e3)
+        return float(np.median(times)), res
+
+    def gather(t):
+        """Rank 0: the ranks' blocks of ``t`` (host), in rank order."""
+        host = t.detach().to("cpu").contiguous()
+        parts = ([torch.empty_like(host) for _ in range(world)]
+                 if rank == 0 else None)
+        dist.gather(host, parts, dst=0, group=group)
+        return parts
+
+    T = sz["T"]
+    tl = T // world
+    lo = rank * tl
+    q, k, v = sp_inputs(T, dev, SP_SEED)
+    qb, kb, vb = (x[:, lo:lo + tl].contiguous() for x in (q, k, v))
+    rel = sp_rel(T, dev, SP_SEED + 1)
+    cases = {"plain": {}, "causal": {"causal": True},
+             "rel_bias": {"bias_fn": sp_rel_bias(rel, T)}}
+    out["bringup_s"] = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    blocks = {}
+    with torch.no_grad():
+        for name, kw in cases.items():
+            ms, o = timed(lambda: ring.ring_attention(qb, kb, vb, group, **kw))
+            out[f"fwd_{name}_ms"] = ms
+            blocks[name] = gather(o)
+        # Ulysses: heads split over the ranks, the whole sequence each
+        def ulysses():
+            qh, kh, vh = (ring.ulysses_all_to_all(t, group) for t in (qb, kb, vb))
+            return ring.ulysses_all_to_all(ring.reference_attention(qh, kh, vh),
+                                           group, to_heads=False)
+        out["ulysses_ms"], o = timed(ulysses)
+        blocks["ulysses"] = gather(o)
+        # one hop of the K/V block, and its two parts: the host staging
+        # (device to host and back) and the gloo exchange of host tensors
+        out["hop_ms"], _ = timed(lambda: ring.ring_shift((kb, vb), group))
+        out["hop_staging_ms"], _ = timed(
+            lambda: [t.to("cpu").to(dev) for t in (kb, vb)])
+        hk = [t.to("cpu") for t in (kb, vb)]
+        out["hop_gloo_ms"], _ = timed(lambda: ring.ring_shift(hk, group))
+        out["hop_mb"] = 2 * kb.numel() * kb.element_size() / 2**20
+    out["ring_peak_mb"] = (torch.cuda.max_memory_allocated(dev) / 2**20
+                           if on_card else None)
+
+    # the backward at SP_GRAD_T: d sum(out * w), causal with a relative bias
+    Tg = sz["grad_T"]
+    tg = Tg // world
+    glo = rank * tg
+    gq, gk, gv, gw = sp_inputs(Tg, dev, SP_SEED + 2, n=4)
+    grel = sp_rel(Tg, dev, SP_SEED + 3)
+    leaves = [x[:, glo:glo + tg].contiguous().requires_grad_(True)
+              for x in (gq, gk, gv)]
+    rel_leaf = grel.clone().requires_grad_(True)
+    w_blk = gw[:, glo:glo + tg]
+
+    def fwd_bwd():
+        for t in leaves + [rel_leaf]:
+            t.grad = None
+        o = ring.ring_attention(*leaves, group, causal=True,
+                                bias_fn=sp_rel_bias(rel_leaf, Tg))
+        (o * w_blk).sum().backward()
+        return o
+
+    with torch.no_grad():
+        out["grad_T_fwd_ms"], _ = timed(lambda: ring.ring_attention(
+            *leaves, group, causal=True, bias_fn=sp_rel_bias(grel, Tg)))
+    out["fwd_bwd_ms"], _ = timed(fwd_bwd)
+    grads = {n: gather(t.grad) for n, t in zip(("dq", "dk", "dv"), leaves)}
+    drel = gather(rel_leaf.grad)   # each rank's share of d(rel)
+    dist.barrier(group)
+
+    inputs = [gather(t) for t in (qb, kb, vb)]
+    grad_inputs = [gather(t) for t in leaves + [w_blk]]
+
+    if rank == 0:
+        # the oracle on this rank, on the card, from the gathered inputs
+        q, k, v = (torch.cat(p, dim=1).to(dev) for p in inputs)
+        gq, gk, gv, gw = (torch.cat(p, dim=1).to(dev) for p in grad_inputs)
+        checks = {}
+        for name, kw in list(cases.items()) + [("ulysses", {})]:
+            got = torch.cat(blocks[name], dim=1).to(dev)
+            with torch.no_grad():
+                if name == "plain":
+                    sync()
+                    a = time.perf_counter()
+                    want = ring.reference_attention(q, k, v)
+                    sync()
+                    out["reference_ms"] = (time.perf_counter() - a) * 1e3
+                elif name == "ulysses":
+                    want = ring.reference_attention(q, k, v)
+                else:
+                    want = ring.reference_attention(q, k, v, **kw)
+            checks[name] = sp_gap(got, want)
+            del got, want
+            if on_card:
+                torch.cuda.empty_cache()
+        qf, kf, vf = (x.clone().requires_grad_(True) for x in (gq, gk, gv))
+        relf = grel.clone().requires_grad_(True)
+        ref = ring.reference_attention(qf, kf, vf, causal=True,
+                                       bias_fn=sp_rel_bias(relf, Tg))
+        (ref * gw).sum().backward()
+        for n, t in zip(("dq", "dk", "dv"), (qf, kf, vf)):
+            checks[n] = sp_gap(torch.cat(grads[n], dim=1).to(dev), t.grad)
+        checks["drel"] = sp_gap(torch.stack(drel).sum(0).to(dev), relf.grad)
+        out["checks"] = checks
+    out["peak_mb"] = (torch.cuda.max_memory_allocated(dev) / 2**20
+                      if on_card else None)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier(group)
+    dist.destroy_process_group()
+    return 0
+
+
+def ring_leg(device: str, scratch: str, sz: dict) -> dict:
+    """Phase 20 leg 1: the ring world's ranks, then their checks."""
+    t0 = time.perf_counter()
+    outdir = os.path.join(scratch, "ring")
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "spec.json"), "w") as f:
+        json.dump({"sizes": sz, "device": device, "world": SP_RANKS}, f)
+    coord = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = [open(os.path.join(outdir, f"rank{r}.log"), "w")
+            for r in range(SP_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ring-rank", str(r),
+         str(coord), outdir], stdout=logs[r], stderr=subprocess.STDOUT,
+        cwd=here) for r in range(SP_RANKS)]
+    try:
+        codes = [p.wait(timeout=SP_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for f in logs:
+            f.close()
+    for r, code in enumerate(codes):
+        if code != 0:
+            with open(os.path.join(outdir, f"rank{r}.log")) as f:
+                tail = "".join(f.readlines()[-40:])
+            raise AssertionError(f"ring rank {r} exited {code}:\n{tail}")
+    res = []
+    for r in range(SP_RANKS):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    checks = res[0]["checks"]
+    for name, c in checks.items():
+        tol = SP_GRAD_TOL if name.startswith("d") else SP_FWD_TOL
+        if not c["max_rel_excess"] <= tol:
+            raise AssertionError(f"ring {name}: off the reference by "
+                                 f"{c['max_abs_err']} (tolerance {tol} abs "
+                                 f"and rel)")
+    slowest = {k: max(x[k] for x in res) for k in res[0]
+               if k.endswith("_ms") and k != "reference_ms"}
+    return {"world": SP_RANKS, "T": sz["T"], "T_local": sz["T"] // SP_RANKS,
+            "grad_T": sz["grad_T"], "B": SP_B, "H": SP_H, "D": SP_D,
+            "devices": [x["device"] for x in res],
+            "ms_slowest_rank": slowest, "reference_ms": res[0]["reference_ms"],
+            "hop_mb": res[0]["hop_mb"], "checks": checks,
+            "bringup_s": [x["bringup_s"] for x in res],
+            "ring_peak_mb": [x["ring_peak_mb"] for x in res],
+            "peak_mb": [x["peak_mb"] for x in res],
+            "leg_s": time.perf_counter() - t0}
+
+
+def lm_leg(device: str, lm: dict) -> dict:
+    """Phase 20: the long-context LM twin at the JAX example's defaults
+    (its own 4-rank lockstep world); the loss falls, the echo is learnt,
+    and the table holds the trained model after the sync."""
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "long_context_lm", os.path.join(here, "multiverso_tpu_torch",
+                                        "examples", "long_context_lm.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = time.perf_counter()
+    rep = example.run(device=device, verbose=False, world=SP_RANKS, **lm)
+    losses = rep["losses"]
+    first, last = float(np.mean(losses[:25])), float(np.mean(losses[-25:]))
+    if not last < first:
+        raise AssertionError(f"LM: the loss did not fall ({first} -> {last})")
+    if not rep["acc"] > 0.9:
+        raise AssertionError(f"LM: final echo accuracy {rep['acc']}")
+    if not rep["table_gap"] <= LM_TABLE_GAP:
+        raise AssertionError(f"LM: the table is {rep['table_gap']} off the "
+                             f"trained model after the sync")
+    return {"config": lm, "lag": rep["lag"], "acc": rep["acc"],
+            "loss_first25": first, "loss_last25": last,
+            "table_gap": rep["table_gap"], "steps_per_s": rep["steps_per_s"],
+            "train_s": rep["train_s"], "device": rep["device"],
+            "peak_mb": rep["peak_mb"], "leg_s": time.perf_counter() - t0}
+
+
+def _f32p(a: np.ndarray):
+    import ctypes
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _i32p(a: np.ndarray):
+    import ctypes
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+
+
+def native_leg(mvt, rows, device: str, scratch: str, sz: dict) -> tuple:
+    """Phase 20 leg 2: the port's native library from this process (C API
+    over a configuration-1 matrix, bitwise against a numpy mirror), its C
+    clients as child processes, the codecs and the libsvm reader. Returns
+    (metrics, row-kernel launches over the C API drive)."""
+    import ctypes
+    from multiverso_tpu_torch import c_bridge, native
+    from multiverso_tpu_torch.config import FLAGS
+    from multiverso_tpu_torch.models.logreg import (load_libsvm,
+                                                    load_libsvm_native)
+    from multiverso_tpu_torch.utils import quantization as qz
+    # built at first use: by this leg, or earlier in this process
+    t0 = time.perf_counter()
+    lib = native.load()
+    m = {"load_s": time.perf_counter() - t0,
+         "build_s": native.build_seconds.get(native.LIB_NAME)}
+
+    # the C API through ctypes: MV_Init on the card, 1024-row rounds
+    stop_runtime(mvt)
+    num_row, num_col, batch = sz["num_row"], sz["num_col"], sz["batch"]
+    argv = [b"chip_smoke", f"-device={device}".encode()]
+    argc = ctypes.c_int(len(argv))
+    lib.MV_Init(ctypes.byref(argc), (ctypes.c_char_p * 3)(*argv, None))
+    handle = ctypes.c_void_p()
+    lib.MV_NewMatrixTable(num_row, num_col, ctypes.byref(handle))
+    table = c_bridge._tables[handle.value]
+    m["table_device"] = str(table._server_table.data.device)
+    if m["table_device"].split(":")[0] != device:
+        raise AssertionError(f"C API table on {m['table_device']}")
+    mirror = np.zeros((num_row, num_col), np.float32)
+    rng = np.random.default_rng(NATIVE_SEED)
+    lat = {"c_add": [], "c_get": [], "py_add": [], "py_get": []}
+
+    def drive(via: str, n_rounds: int) -> dict:
+        """``n_rounds`` Add+Get rounds through the C API (``via="c"``) or
+        the Python API (``"py"``), each Get bitwise against the mirror;
+        returns the row-kernel launches of exactly these rounds."""
+        zero_launches(rows)
+        for k in range(n_rounds):
+            ids = rng.integers(0, num_row, batch).astype(np.int32)
+            vals = rng.integers(-3, 4, (batch, num_col)).astype(np.float32)
+            np.add.at(mirror, ids, vals)
+            gids = rng.integers(0, num_row, batch).astype(np.int32)
+            out = np.empty((batch, num_col), np.float32)
+            a = time.perf_counter()
+            if via == "c":
+                lib.MV_AddMatrixTableByRows(handle, _f32p(vals), vals.size,
+                                            _i32p(ids), batch)
+            else:
+                table.add(vals, row_ids=ids)
+            b = time.perf_counter()
+            if via == "c":
+                lib.MV_GetMatrixTableByRows(handle, _f32p(out), out.size,
+                                            _i32p(gids), batch)
+            else:
+                out = table.get(gids)
+            lat[f"{via}_add"].append((b - a) * 1e3)
+            lat[f"{via}_get"].append((time.perf_counter() - b) * 1e3)
+            if not np.array_equal(out, mirror[gids]):
+                raise AssertionError(f"{via} API round {k}: the Get is off "
+                                     f"the mirror")
+        return launch_counts(rows)
+
+    launches = drive("c", sz["rounds"])        # the C API alone
+    py_launches = drive("py", sz["py_rounds"])   # the Python API alone
+    whole = np.empty((num_row, num_col), np.float32)
+    lib.MV_GetMatrixTableAll(handle, _f32p(whole), whole.size)
+    if not np.array_equal(whole, mirror):
+        raise AssertionError("C API: the whole table is off the mirror")
+    lib.MV_ShutDown()
+    FLAGS.reset()
+    del whole, mirror
+    if device == "cuda":
+        for kname, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{kname}: no launch through the C API")
+    m["c_api"] = {"rounds": sz["rounds"], "py_rounds": sz["py_rounds"],
+                  "shape": [num_row, num_col], "batch": batch,
+                  "py_api_launches": py_launches,
+                  **{f"{k}_ms": percentiles(v) for k, v in lat.items()}}
+
+    # the C clients: they embed Python, which needs a shared libpython
+    cfg = native.embed_config()
+    ok, why = native.embed_supported()
+    m["embed"] = {"Py_ENABLE_SHARED": cfg["Py_ENABLE_SHARED"],
+                  "LDLIBRARY": cfg["LDLIBRARY"],
+                  "libpython": str(native.shared_libpython()),
+                  "clients_run": ok, "why_not": why}
+    print(f"native: Py_ENABLE_SHARED={cfg['Py_ENABLE_SHARED']} "
+          f"LDLIBRARY={cfg['LDLIBRARY']} shared libpython "
+          f"{native.shared_libpython()}; C clients "
+          f"{'run' if ok else 'left out: ' + why}", flush=True)
+    if ok:
+        args = [] if device == "cuda" else [f"-device={device}"]
+        for name, marker in (("test_c_api", "c_api smoke test passed"),
+                             ("test_lua_ffi", "lua ffi replay passed")):
+            a = time.perf_counter()
+            binary = native.build_client(name)
+            b = time.perf_counter()
+            proc = subprocess.run([str(binary)] + args,
+                                  env=native.client_env(),
+                                  cwd=str(native.BUILD_DIR),
+                                  capture_output=True, text=True,
+                                  timeout=CLIENT_S)
+            if proc.returncode != 0 or marker not in proc.stdout:
+                raise AssertionError(f"{name} exited {proc.returncode}:\n"
+                                     f"{(proc.stdout + proc.stderr)[-3000:]}")
+            m[name] = {"build_s": b - a, "run_s": time.perf_counter() - b}
+
+    # the codecs: native and numpy payloads byte for byte
+    crng = np.random.default_rng(NATIVE_SEED + 1)
+    sparse = np.zeros(sz["codec_floats"], np.float32)
+    nz = crng.choice(sparse.size, sparse.size // 100, replace=False)
+    sparse[nz] = crng.standard_normal(nz.size, dtype=np.float32)
+    dense = crng.standard_normal(sz["codec_floats"], dtype=np.float32)
+    codec = {}
+    for name, enc in (("sparse", lambda x, f: qz.sparse_encode(x, force_numpy=f)),
+                      ("dense", lambda x, f: qz.sparse_encode(x, force_numpy=f)),
+                      ("quant4", lambda x, f: qz.quant_encode(
+                          x, 4, force_numpy=f))):
+        x = sparse if name == "sparse" else dense
+        a = time.perf_counter()
+        got = enc(x, False)
+        b = time.perf_counter()
+        want = enc(x, True)
+        c = time.perf_counter()
+        if got != want:
+            raise AssertionError(f"codec {name}: native and numpy payloads "
+                                 f"differ")
+        codec[name] = {"bytes": len(got), "native_ms": (b - a) * 1e3,
+                       "numpy_ms": (c - b) * 1e3}
+    m["codecs"] = codec
+
+    # the libsvm reader: native against the Python parser
+    path = os.path.join(scratch, "native.libsvm")
+    lrng = np.random.default_rng(NATIVE_SEED + 2)
+    with open(path, "w") as f:
+        for _ in range(sz["libsvm_lines"]):
+            feats = np.sort(lrng.choice(1 << 20, int(lrng.integers(1, 40)),
+                                        replace=False))
+            vals = lrng.standard_normal(feats.size)
+            f.write(f"{int(lrng.integers(0, 2))} " + " ".join(
+                f"{i}:{v:.6g}" for i, v in zip(feats, vals)) + "\n")
+    a = time.perf_counter()
+    nat = load_libsvm_native(path, max_nnz=39)
+    b = time.perf_counter()
+    ref = load_libsvm("file://" + path, max_nnz=39)   # the Python parser
+    c = time.perf_counter()
+    if nat is None or any(not np.array_equal(nat[k], ref[k])
+                          for k in ("y", "idx", "val")):
+        raise AssertionError("load_libsvm_native is off the Python parser")
+    m["libsvm"] = {"lines": sz["libsvm_lines"], "native_s": b - a,
+                   "python_s": c - b}
+    return m, launches
+
+
+def seqpar_native_phase(mvt, rows, device: str, scratch: str,
+                        sizes=None) -> tuple:
+    """Phase 20: leg 1 (the ring world, then the LM twin) and leg 2 (the
+    native layer). Returns (metrics, row-kernel launches of leg 2).
+    ``sizes`` shrinks it for a CPU rehearsal."""
+    sz = dict(T=SP_T, grad_T=SP_GRAD_T, num_row=ROWS, num_col=COLS,
+              batch=BATCH, rounds=NATIVE_ROUNDS, py_rounds=NATIVE_PY_ROUNDS,
+              codec_floats=CODEC_FLOATS, libsvm_lines=LIBSVM_LINES,
+              lm=LM_CONFIG)
+    sz.update(sizes or {})
+    t0 = time.perf_counter()
+    m = {"1_ring": ring_leg(device, scratch, sz)}
+    m["1_lm"] = lm_leg(device, sz["lm"])
+    m["2_native"], launches = native_leg(mvt, rows, device, scratch, sz)
+    m["phase_s"] = time.perf_counter() - t0
+    return m, launches
+
+
 KERNELS = {
     "scatter_add_rows":"multiverso_tpu/ops/pallas_rows.py:172",
     "gather_rows": "multiverso_tpu/ops/pallas_rows.py:107",
@@ -6396,6 +6902,8 @@ def main(argv=None) -> int:
         return durable_primary_main(argv[1:])
     if argv[:1] == ["--multihost-rank"]:
         return multihost_rank_main(argv[1:])
+    if argv[:1] == ["--ring-rank"]:
+        return ring_rank_main(argv[1:])
     args = parser.parse_args(argv)
     if args.client:
         return client_main()
@@ -6411,6 +6919,7 @@ def main(argv=None) -> int:
 def smoke(args, scratch: str) -> int:
     started = time.perf_counter()
     import multiverso_tpu_torch as mvt
+    from multiverso_tpu_torch import native
     from multiverso_tpu_torch.ops import kernels, rows
     from multiverso_tpu_torch.parallel import mesh
 
@@ -6431,6 +6940,11 @@ def smoke(args, scratch: str) -> int:
     for line in kernels.build_logs.get("rows", "").splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    # the native library (C API, codecs, reader): g++ at first use, here
+    t0 = time.perf_counter()
+    native.load()
+    print(f"built native/ (libmultiverso_tpu.so) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. kernels
     results, floor = kernel_phase(rows, mesh, dev)
@@ -6606,7 +7120,20 @@ def smoke(args, scratch: str) -> int:
     print(f"multi-process PS phase: {multihost['phase_s']:.1f} s ({card})",
           flush=True)
 
-    # 20. the kernel line, then the verdict
+    # 20. sequence parallelism (the ring, Ulysses, the LM twin) and the
+    # native layer (the C API, its clients, codecs and reader)
+    seqpar, native_launches = seqpar_native_phase(mvt, rows, "cuda", scratch)
+    print(f"ring attention on {card}: {json.dumps(seqpar['1_ring'])}",
+          flush=True)
+    print(f"long-context LM twin on {card}: {json.dumps(seqpar['1_lm'])}",
+          flush=True)
+    print(f"native layer on {card}: {json.dumps(seqpar['2_native'])}; "
+          f"row-kernel launches through the C API: "
+          f"{json.dumps(native_launches)}", flush=True)
+    print(f"sequence-parallel and native phase: {seqpar['phase_s']:.1f} s "
+          f"({card})", flush=True)
+
+    # 21. the kernel line, then the verdict
     table = []
     for k, where in KERNELS.items():
         r = results[k]
@@ -6636,7 +7163,9 @@ def smoke(args, scratch: str) -> int:
                               k, 0)},
                       # phase 19: launches in each rank of the world
                       "multihost_rank_launches": {
-                          rank: c.get(k, 0) for rank, c in mh_launches.items()}})
+                          rank: c.get(k, 0) for rank, c in mh_launches.items()},
+                      # phase 20: launches through the C API
+                      "c_api_launches": native_launches.get(k, 0)})
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": table}))

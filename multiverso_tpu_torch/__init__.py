@@ -132,6 +132,7 @@ def init(argv: Optional[Sequence[str]] = None, sync: Optional[bool] = None,
     except BaseException:
         _stop_profiling(export=False)
         raise
+    _configure_native_allocator()
     _start_metrics_logger()
     _start_observability()
     _start_autotune()
@@ -147,6 +148,17 @@ def shutdown(finalize_net: bool = True) -> None:
     _stop_profiling()
     _stop_metrics_logger()
     _stop_observability()
+
+
+def _configure_native_allocator() -> None:
+    """Plumb the ``allocator_type`` / ``allocator_alignment`` flags into the
+    native host pool. The pool lives in the native library: where this
+    process has loaded it, the flags go in now; otherwise the library takes
+    them when it is first loaded (``native.load``), so ``init`` never
+    builds it."""
+    from multiverso_tpu_torch import native
+    if native.loaded() is not None:
+        native.configure_allocator()
 
 
 _metrics_logger = None

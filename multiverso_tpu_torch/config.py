@@ -209,6 +209,8 @@ define_int("omp_threads", 4, "host-side worker threads for CPU fallbacks "
            "(the logistic-regression readers' parse pool)")
 define_string("updater_type", "default", "server-side optimizer: default|sgd|adagrad|momentum_sgd|dcasgd")
 define_bool("is_pipelined", False, "double-buffered pipelined get")
+define_int("allocator_alignment", 16, "host buffer alignment (native allocator)")
+define_string("allocator_type", "smart", "host allocator: smart|default")
 define_int("local_workers", 1, "logical worker contexts hosted by this process")
 define_int("remote_workers", 0,
            "expected off-process worker clients (serve() / "

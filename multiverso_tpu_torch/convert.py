@@ -28,7 +28,9 @@ transpose per leaf.
 A JAX ``PSGibbsLDA``'s state (tokens, assignments, counts) leaves with
 :func:`lda_state_from_jax`, and a port ``PSGibbsLDA`` resumes from it
 (``z=``); the addition-RNN example's flax parameters become the port
-example's ``state_dict`` with :func:`addition_rnn_from_jax`.
+example's ``state_dict`` with :func:`addition_rnn_from_jax`, and the
+long-context example's parameter dict becomes the port twin's with
+:func:`long_context_params_from_jax`.
 Nothing here imports the JAX package: the caller hands over plain arrays.
 A checkpoint file (``checkpoint.py``) is the second way across: the JAX
 package's ``store_table`` writes the same state, and the port's
@@ -407,3 +409,15 @@ def addition_rnn_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     out["dense.bias"] = torch.from_numpy(np.array(
         flax_params["Dense_0"]["bias"], np.float32))
     return out
+
+
+def long_context_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX long-context example's parameter dict (``emb``, ``rel``,
+    ``qkv``, ``proj``, ``mlp_in``, ``mlp_out``, as numpy arrays) as the
+    port twin's (CPU float32 tensors, for
+    ``examples/long_context_lm.py``'s ``params=``). Both models multiply
+    activations on the left (``g @ qkv``), so every leaf keeps its
+    layout."""
+    names = ("emb", "rel", "qkv", "proj", "mlp_in", "mlp_out")
+    return {n: torch.from_numpy(np.array(params[n], np.float32))
+            for n in names}

@@ -3,7 +3,8 @@
 Each source is compiled once, at first use, by ``nvcc`` into a shared
 library with a plain C interface, and loaded with ``ctypes``. The library
 name carries a hash of the source and the flags, so an edited source is
-rebuilt and never confused with a stale build. Builds land in
+rebuilt and never confused with a stale build (:func:`cached_build`, which
+the native library's build shares). Builds land in
 ``multiverso_tpu_torch/_build/`` (listed in ``.gitignore``); nothing is
 built while a module is imported.
 
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -72,25 +73,46 @@ def find_nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def cached_build(out_dir: Path, stem: str, suffix: str,
+                 inputs: Sequence[Path],
+                 cmd: Sequence[str]) -> Tuple[Path, Optional[str]]:
+    """Build ``out_dir/<stem>-<digest><suffix>`` with ``cmd`` unless it
+    exists. The digest covers the inputs' bytes and the command, so an
+    edited source or flag builds anew and a stale build is never loaded.
+    ``cmd`` names its output ``{out}``: a temporary file, renamed over the
+    target once the compiler succeeds (atomic: a concurrent build sees all
+    or nothing). Returns (the path, the compiler's output, or None where
+    the build existed); raises with that output where the compiler fails."""
+    h = hashlib.sha256()
+    for f in inputs:
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    for arg in cmd:
+        h.update(arg.encode() + b"\0")
+    target = out_dir / f"{stem}-{h.hexdigest()[:16]}{suffix}"
+    if target.is_file():
+        return target, None
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".{os.getpid()}.{threading.get_ident()}.{target.name}"
+    proc = subprocess.run([a.replace("{out}", str(tmp)) for a in cmd],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"building {target.name} failed (exit "
+                           f"{proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, target)
+    return target, log
+
+
 def build(name: str, nvcc: Optional[str] = None) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date build exists; return
     the library path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    if lib.is_file():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".lib{name}-{digest}.{os.getpid()}.so"
-    cmd = [nvcc or find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_logs[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
-                           f"{build_logs[name]}")
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    lib, log = cached_build(BUILD_DIR, f"lib{name}", ".so", [src],
+                            [nvcc or find_nvcc(), *NVCC_FLAGS, "-o", "{out}",
+                             str(src)])
+    if log is not None:
+        build_logs[name] = log
     return lib
 
 

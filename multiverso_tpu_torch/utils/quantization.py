@@ -1,6 +1,5 @@
 """Wire compression: SparseFilter and the quantized delta codec with error
-feedback (port of ``multiverso_tpu/utils/quantization.py``, its numpy
-codecs).
+feedback (port of ``multiverso_tpu/utils/quantization.py``).
 
 Reference capability (not copied): ``SparseFilter<data,index>`` encodes a
 blob as (index, value) pairs when more than half of it is zeros;
@@ -15,14 +14,17 @@ changes, and the elementwise quantize is float32 with round-half-to-even.
 The cold tier (``store/coldstore.py``) packs spilled rows with this codec
 and the query plane scores its codes in the compressed domain.
 
-The JAX package also loads a native build of these codecs
-(``native/libmultiverso_tpu.so``); the port has no native library yet, so
-:func:`native_available` is False and every call runs the numpy codec
-(the ``force_numpy`` arguments are kept for the same call signatures).
+Each codec runs natively (``native/sparse_filter.cpp``,
+``native/quant_filter.cpp`` in the port's ``libmultiverso_tpu.so``,
+loaded with ``ctypes``) unless ``force_numpy=True`` asks for the numpy
+version; both write the same bytes. The library is built at first use
+(:mod:`multiverso_tpu_torch.native`), and a failed build raises: the
+codecs never fall back to numpy quietly.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 
 import numpy as np
@@ -30,14 +32,34 @@ import numpy as np
 _MAGIC = 0x4653564D  # 'MVSF'
 
 
+def _load_native() -> ctypes.CDLL:
+    """The port's native library, built at first use; raises when the build
+    fails (no numpy fallback)."""
+    from multiverso_tpu_torch import native
+    return native.load()
+
+
 def native_available() -> bool:
-    """The port carries no native codec library."""
-    return False
+    """True once the native codecs are loaded: builds the library at first
+    use and raises when that fails."""
+    return _load_native() is not None
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
 def sparse_encode(data: np.ndarray, force_numpy: bool = False) -> bytes:
     """Encode a float32 array; sparse form when <50% nonzero."""
     data = np.ascontiguousarray(data, dtype=np.float32).reshape(-1)
+    if not force_numpy:
+        # worst case: header(16) + nnz(8) + count*(4+4)
+        cap = 24 + data.size * 8
+        out = np.empty(cap, dtype=np.uint8)
+        n = _load_native().MVTPU_SparseEncode(
+            _ptr(data, ctypes.c_float), data.size, _ptr(out, ctypes.c_uint8),
+            cap)
+        return out[:n].tobytes()
     nz = np.nonzero(data)[0]
     sparse = 2 * len(nz) < data.size
     header = struct.pack("<IIQ", _MAGIC, 1 if sparse else 0, data.size)
@@ -51,6 +73,14 @@ def sparse_encode(data: np.ndarray, force_numpy: bool = False) -> bytes:
 
 def sparse_decode(payload: bytes, count: int,
                   force_numpy: bool = False) -> np.ndarray:
+    if not force_numpy:
+        out = np.zeros(count, dtype=np.float32)
+        buf = np.frombuffer(payload, dtype=np.uint8)
+        if not _load_native().MVTPU_SparseDecode(
+                _ptr(buf, ctypes.c_uint8), len(payload),
+                _ptr(out, ctypes.c_float), count):
+            raise ValueError("malformed sparse payload")
+        return out
     magic, kind, n = struct.unpack_from("<IIQ", payload, 0)
     if magic != _MAGIC or n != count:
         raise ValueError("malformed sparse payload")
@@ -113,8 +143,14 @@ def quant_encode(data: np.ndarray, bits: int,
                          float(step))
     per_byte = 8 // bits
     n_bytes = -(-data.size // per_byte)
+    if not force_numpy:
+        out = np.zeros(n_bytes, dtype=np.uint8)
+        _load_native().MVTPU_QuantPack(
+            _ptr(data, ctypes.c_float), data.size, float(lo), float(inv),
+            bits, _ptr(out, ctypes.c_uint8))
+        return header + out.tobytes()
     levels = (1 << bits) - 1
-    # float32 elementwise + rint (round-half-to-even), as the JAX package
+    # float32 elementwise + rint (round-half-to-even), as the C++ nearbyintf
     q = np.rint((data - lo) * inv).astype(np.float32)
     q = np.clip(q, 0, levels).astype(np.uint8)
     pad = n_bytes * per_byte - data.size
@@ -129,6 +165,18 @@ def quant_encode(data: np.ndarray, bits: int,
 def quant_decode(payload: bytes, count: int,
                  force_numpy: bool = False) -> np.ndarray:
     """Decode a quant payload back to float32 (count values)."""
+    if not force_numpy:
+        magic, bits, n = struct.unpack_from("<IIQ", payload, 0)
+        if magic != _QMAGIC or n != count or bits not in _QBITS:
+            raise ValueError("malformed quant payload")
+        lo, step = struct.unpack_from("<ff", payload, 16)
+        n_bytes = -(-count // (8 // bits))
+        buf = np.frombuffer(payload, dtype=np.uint8, offset=24, count=n_bytes)
+        out = np.zeros(count, dtype=np.float32)
+        _load_native().MVTPU_QuantUnpack(
+            _ptr(buf, ctypes.c_uint8), count, lo, step, bits,
+            _ptr(out, ctypes.c_float))
+        return out
     q, lo, step, _bits = _unpack_codes(payload, count)
     return (lo + q.astype(np.float32) * step).astype(np.float32)
 

@@ -24,7 +24,7 @@ PORT_FILES = sorted((REPO / "multiverso_tpu_torch").rglob("*.py")) + [
 EXAMPLES = ("resnet_asgd.py", "torch_asgd.py", "asgd_param_manager.py",
             "lda_topics.py", "word2vec_train.py", "logreg_train.py",
             "ftrl_ctr.py", "word2vec_query.py", "addition_rnn.py",
-            "multihost_ps.py")
+            "multihost_ps.py", "long_context_lm.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -102,7 +102,10 @@ def test_import_pulls_in_no_jax():
             "multiverso_tpu_torch.autopilot.policy",
             "multiverso_tpu_torch.autopilot.sensors",
             "multiverso_tpu_torch.runtime.multihost",
-            "multiverso_tpu_torch.parallel.mesh"} <= set(loaded)
+            "multiverso_tpu_torch.parallel.mesh",
+            "multiverso_tpu_torch.parallel.ring",
+            "multiverso_tpu_torch.c_bridge",
+            "multiverso_tpu_torch.native"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -190,3 +193,26 @@ def test_multihost_module_is_checked():
               / "multihost.py").read_text()
     assert "dist.init_process_group(" in source
     assert "JAX_PLATFORMS" not in source and "XLA_FLAGS" not in source
+
+
+def test_native_sources_drive_the_port_and_build_under_build():
+    """The port's C API imports the port's bridge and names no module of
+    the JAX package; the library and the C clients are built only under
+    ``multiverso_tpu_torch/_build/`` (gitignored), never beside the
+    sources."""
+    import re
+
+    from multiverso_tpu_torch import native
+    src = REPO / "multiverso_tpu_torch" / "native"
+    c_api = (src / "c_api.cpp").read_text()
+    assert 'PyImport_ImportModule("multiverso_tpu_torch.c_bridge")' in c_api
+    for path in sorted(src.glob("*.[ch]*")):
+        text = path.read_text()
+        assert not re.search(r"multiverso_tpu\.(?!so)", text), path.name
+        assert "jax" not in text.lower(), path.name
+    assert native.BUILD_DIR == REPO / "multiverso_tpu_torch" / "_build" / "native"
+    assert "multiverso_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
+    assert not list(src.glob("*.so")) and not list(src.glob("*.o"))
+    assert not any((src / c).exists() for c in native.CLIENTS)
+    bridge = (REPO / "multiverso_tpu_torch" / "c_bridge.py").read_text()
+    assert "import multiverso_tpu_torch as mvt" in bridge

@@ -4,10 +4,9 @@ metric and flag rules pointed at the port.
 
 The fixture puts back exactly the lock factories it found, whether the
 JAX package's sanitizer had patched them (``MV_LOCKCHECK=1``) or not. The
-lint test holds the port's findings to the metrics and flags of the
-modules still to be ported (``runtime/multihost.py`` with the mesh, and
-``native/``'s allocator); each later slice shrinks the list, and it ends
-empty."""
+lint test held the port's findings to the metrics and flags of the modules
+still to be ported; with ``native/``'s allocator flags ported the lists are
+empty, so the port lints clean."""
 
 import re
 import threading
@@ -173,8 +172,8 @@ def test_lockcheck_cycle_counts_and_dumps(lockcheck_session, tmp_path):
 
 # -- tools.mvlint on the port ---------------------------------------------------
 
-#: Flags of the modules still to be ported: ``native/`` (the allocator).
-QUEUED_FLAGS = {"allocator_alignment", "allocator_type"}
+#: Flags of the modules still to be ported: none (the module port is done).
+QUEUED_FLAGS = set()
 #: Catalogued metrics only those modules emit: none.
 QUEUED_METRICS = set()
 

@@ -20,8 +20,9 @@ def run_kv(mv, rank, world, ctx):
     replica and replays the same Adds, growth included. The key->value
     map and the live count are held, not the slot layout."""
     kv = mv.create_table("kv", np.int32, capacity=64)  # small: forces growth
-    cap0 = kv._server_table.capacity
-    n_keys = cap0
+    # the declared capacity, not the replica's: another rank's Add may
+    # already have grown this rank's replica when it would be read
+    cap0 = n_keys = 64
     with mv.worker(0):
         # overlapping keys accumulate across ranks
         kv.add(list(range(n_keys)), [rank + 1] * n_keys)
