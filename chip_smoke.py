@@ -3483,8 +3483,7 @@ def serve_ps_leg(mvt, rows, device: str, pool: ClientPool,
         server_ms = {name: snap.monitors.get(name, {}).get("average_ms")
                      for name in ("WIRE_DECODE", "WIRE_ENCODE",
                                   "SERVER_PROCESS_ADD_MSG",
-                                  "SERVER_PROCESS_GET_MSG",
-                                  "SERVER_DISPATCH_MSG")}
+                                  "SERVER_PROCESS_GET_MSG")}
         for name in ("FRAME_DECODE_SECONDS", "FRAME_ENCODE_SECONDS"):
             h = snap.histogram(name)
             server_ms[name + "_p50"] = (h.p50 * 1e3 if h is not None

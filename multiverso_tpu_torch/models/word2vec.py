@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -71,6 +72,7 @@ import multiverso_tpu_torch as mvt
 from multiverso_tpu_torch import io as mv_io
 from multiverso_tpu_torch import log
 from multiverso_tpu_torch.config import get_flag
+from multiverso_tpu_torch.dashboard import Dashboard, monitor, observe
 from multiverso_tpu_torch.models.vocab import Dictionary, HuffmanEncoder
 from multiverso_tpu_torch.ops.rows import ROW_GROUP, gather_rows
 from multiverso_tpu_torch.ops.sampling import (build_alias_table,
@@ -731,10 +733,25 @@ class DeviceTrainer:
         return self.draw_hook(step, t, tg, None)
 
     def train_block(self, block: np.ndarray, lr: Optional[float] = None) -> float:
+        """One block: the subsample (``W2V_SUBSAMPLE``), the issue of its
+        steps (``W2V_BLOCK_ISSUE``) and the loss read-back, which waits for
+        the device (``W2V_BLOCK_SYNC``)."""
         if self.config.sample > 0:  # sample=0 keeps everything: skip the draw
-            block = subsample_block(block, self.keep, self.rng)
+            with monitor("W2V_SUBSAMPLE"):
+                block = subsample_block(block, self.keep, self.rng)
         lr = self.config.lr if lr is None else lr
-        losses = []  # device values; one sync at block end
+        with monitor("W2V_BLOCK_ISSUE"):
+            losses = self._issue_block(block, lr)
+        self.words_trained += len(block)
+        if not losses:
+            return 0.0
+        with monitor("W2V_BLOCK_SYNC"):
+            return float(torch.stack(losses).mean().item())
+
+    def _issue_block(self, block: np.ndarray, lr: float) -> List[torch.Tensor]:
+        """Issue a subsampled block's steps; their losses stay on the
+        device."""
+        losses = []
         if self.use_block_step:
             t = self.config.block_tokens
             for k, i in enumerate(range(0, len(block), t)):
@@ -754,10 +771,7 @@ class DeviceTrainer:
                     draws=(self._draws(k, b, b)
                            if self.config.objective == "ns" else None))
                 losses.append(loss)
-        self.words_trained += len(block)
-        if not losses:
-            return 0.0
-        return float(torch.stack(losses).mean().item())
+        return losses
 
     def train(self, blocks, epochs: int = 1, log_every_s: float = 10.0,
               total_words: Optional[int] = None) -> None:
@@ -829,6 +843,43 @@ def make_candidate_delta_step(config: Word2VecConfig):
                 torch.stack([loss_sum, w_sum]))
 
     return dstep
+
+
+class DeviceTime:
+    """The device time of a section that runs again and again on one
+    thread, by a pair of CUDA events recorded on the current stream around
+    each run. It never waits for the device: each :meth:`begin` first
+    records, into the ``name`` monitor and histogram, the earlier pairs
+    whose end event the device has passed (``query()``), oldest first, as
+    the stream completes them. ``event`` makes an event (a timing
+    ``torch.cuda.Event`` by default)."""
+
+    def __init__(self, name: str,
+                 event: Optional[Callable[[], object]] = None) -> None:
+        self.name = name
+        self._event = event or (lambda: torch.cuda.Event(enable_timing=True))
+        self._pending: deque = deque()
+
+    def harvest(self) -> None:
+        """Record every finished pair, oldest first; leave the rest."""
+        while self._pending and self._pending[0][1].query():
+            start, end = self._pending.popleft()
+            seconds = start.elapsed_time(end) / 1e3
+            Dashboard.get(self.name).observe(seconds)
+            observe(self.name, seconds)
+
+    def begin(self):
+        """Harvest, then record and return the start event of a run."""
+        self.harvest()
+        start = self._event()
+        start.record()
+        return start
+
+    def end(self, start) -> None:
+        """Record the run's end event; the pair waits for a later harvest."""
+        end = self._event()
+        end.record()
+        self._pending.append((start, end))
 
 
 class PSTrainer:
@@ -952,7 +1003,8 @@ class PSTrainer:
         Returns a pending record for ``finish_block``; None when the block
         degenerates."""
         if self.config.sample > 0:  # sample=0 keeps everything: skip the draw
-            block = subsample_block(block, self.keep, self.rng)
+            with monitor("W2V_SUBSAMPLE"):
+                block = subsample_block(block, self.keep, self.rng)
         if len(block) < 2:
             return None
         lr = self.config.lr if lr is None else lr
@@ -1095,7 +1147,10 @@ class PSTrainer:
         """The whole PS block as ONE transaction over both tables' device
         state: gather candidate rows, run the block step, apply both
         tables' updates (linear scatter or server-side AdaGrad row update),
-        return the stats triple. Registered by name."""
+        return the stats triple. Registered by name. Timed on the
+        dispatcher in three sections nested in ``SERVER_PROCESS_TRANSACT``
+        (``W2V_TXN_GATHER``, ``W2V_TXN_STEP``, ``W2V_TXN_PUSH``) and, on
+        CUDA, by the device (``SERVER_TRANSACT_DEVICE``)."""
         srv_in = self.input_table._server_table._unwrapped()
         srv_out = self.output_table._server_table._unwrapped()
         apply_in = srv_in.row_apply_traceable()
@@ -1104,12 +1159,15 @@ class PSTrainer:
         pc_out = srv_out.padded_cols
         dim = self.config.dim
         dev = self.device
+        device_time = (DeviceTime("SERVER_TRANSACT_DEVICE")
+                       if dev.type == "cuda" else None)
 
         def txn(datas, states, packed, draws, lr, scale, worker, scalars,
                 b_in, b_out, n_chunks, chunk):
             # `packed` is ONE int32 array [ids_in | ids_out | blocks_c |
             # slot_alias]: an upload in one process, host data in a
             # multi-process world (as are the draws and scalars)
+            began = device_time.begin() if device_time is not None else None
             data_in, data_out = datas
             st_in, st_out = states
             sharded = srv_in.multihost is not None
@@ -1126,30 +1184,35 @@ class PSTrainer:
             o = b_in + b_out
             blocks_c = packed[o:o + n_chunks * chunk].reshape(n_chunks, chunk)
             slot_alias = packed[o + n_chunks * chunk:]
-            if sharded:
-                # the ranks' held candidate rows, exchanged: every rank
-                # trains on the whole candidate set
-                cand_in = srv_in.candidate_rows(ids_h[:b_in])
-                cand_out = srv_out.candidate_rows(ids_h[b_in:])
-            else:
-                cand_in = gather_rows(data_in, ids_in)
-                cand_out = gather_rows(data_out, ids_out)
-            d_in, d_out, stats = self._fast_delta(
-                cand_in, cand_out, draws, blocks_c, slot_alias, lr, scale)
-            if pc_in != dim:
-                d_in = F.pad(d_in, (0, pc_in - dim))
-            if pc_out != dim:
-                d_out = F.pad(d_out, (0, pc_out - dim))
-            if sharded:
-                # each rank writes back only the rows it holds
-                ids_in, d_in = srv_in.owned_push(ids_h[:b_in], d_in)
-                ids_out, d_out = srv_out.owned_push(ids_h[b_in:], d_out)
-            if ids_in is not None:
-                data_in, st_in = apply_in(data_in, st_in, ids_in, d_in,
-                                          worker, scalars)
-            if ids_out is not None:
-                data_out, st_out = apply_out(data_out, st_out, ids_out,
-                                             d_out, worker, scalars)
+            with monitor("W2V_TXN_GATHER"):
+                if sharded:
+                    # the ranks' held candidate rows, exchanged: every rank
+                    # trains on the whole candidate set
+                    cand_in = srv_in.candidate_rows(ids_h[:b_in])
+                    cand_out = srv_out.candidate_rows(ids_h[b_in:])
+                else:
+                    cand_in = gather_rows(data_in, ids_in)
+                    cand_out = gather_rows(data_out, ids_out)
+            with monitor("W2V_TXN_STEP"):
+                d_in, d_out, stats = self._fast_delta(
+                    cand_in, cand_out, draws, blocks_c, slot_alias, lr, scale)
+            with monitor("W2V_TXN_PUSH"):
+                if pc_in != dim:
+                    d_in = F.pad(d_in, (0, pc_in - dim))
+                if pc_out != dim:
+                    d_out = F.pad(d_out, (0, pc_out - dim))
+                if sharded:
+                    # each rank writes back only the rows it holds
+                    ids_in, d_in = srv_in.owned_push(ids_h[:b_in], d_in)
+                    ids_out, d_out = srv_out.owned_push(ids_h[b_in:], d_out)
+                if ids_in is not None:
+                    data_in, st_in = apply_in(data_in, st_in, ids_in, d_in,
+                                              worker, scalars)
+                if ids_out is not None:
+                    data_out, st_out = apply_out(data_out, st_out, ids_out,
+                                                 d_out, worker, scalars)
+            if began is not None:
+                device_time.end(began)
             return [data_in, data_out], [st_in, st_out], stats
 
         self._txn_name = register_program(
@@ -1193,96 +1256,105 @@ class PSTrainer:
         duplicate entries encode the marginal exactly; the step draws
         uniform indices into it. Push ids are unique by construction
         (pool-only ids exclude block tokens), as the row scatter requires:
-        two sorted runs, not sorted as a whole."""
-        blk_u = np.unique(block).astype(np.int32)
-        n_blk = len(blk_u)
-        p_draws = _next_pow2(min(
-            self.neg_pool,
-            max(1024, len(block) * self.config.window
-                * self.config.negatives)))
-        draws = self._neg_draw(self.rng, (p_draws,)).reshape(-1)
-        # persistent vocab->compact-slot lookup table, reset only at the
-        # touched entries (in ``finally``: a dirty table would map the
-        # next block's draws onto THIS block's slots). Worker threads that
-        # share this trainer take turns with it: two blocks filling it at
-        # once would map each other's tokens onto wrong slots.
-        with self._slot_lut_lock:
-            lut = getattr(self, "_slot_lut", None)
-            if lut is None:
-                lut = self._slot_lut = np.full(self.config.vocab_size, -1,
-                                               np.int32)
-            pool_only = None
-            try:
-                lut[blk_u] = np.arange(n_blk, dtype=np.int32)
-                pool_only = np.unique(draws[lut[draws] < 0]).astype(np.int32)
-                lut[pool_only] = n_blk + np.arange(len(pool_only),
-                                                   dtype=np.int32)
-                ids_out = np.concatenate([blk_u, pool_only])
-                slot_alias = lut[draws]
-                flat = lut[block]
-            finally:
-                lut[blk_u] = -1
-                if pool_only is not None:
-                    lut[pool_only] = -1
+        two sorted runs, not sorted as a whole.
 
+        Timed on the caller's thread: ``W2V_SHAPE`` (the compact space, the
+        pool, the chunk layout and, for the transaction, the pack) and
+        ``W2V_UPLOAD`` (the packed upload and the hand-off to the
+        dispatcher)."""
         use_txn = self._can_transact()
-        if not use_txn:
-            h_in = self.input_table.get_device_async(blk_u)
-            h_out = self.output_table.get_device_async(ids_out)
-            cached_in = self.input_table.wait_device(h_in, blk_u)
-            cached_out = self.output_table.wait_device(h_out, ids_out)
-
-        # chunk the block at roughly the pair path's update granularity
-        # (batch_pairs pairs ~ bp/window tokens): the max_row_step clamp is
-        # per step
-        G = self.config.neg_sharing
-        chunk = _next_pow2(max(128, self.config.batch_pairs
-                               // max(self.config.window, 1)))
-        chunk = min(chunk, _next_pow2(max(len(block), G)))
-        if chunk % G:
-            chunk *= G  # keep the grouped-negatives constraint
-        n_chunks = _next_pow2(-(-len(block) // chunk))
-        blocks_c = np.full((n_chunks, chunk), -1, np.int32)
-        blocks_c.reshape(-1)[: len(block)] = flat  # lut-remapped above
         multihost = Zoo.instance().multihost is not None
-        chunk_draws = self._chunk_draws(n_chunks, chunk, p_draws,
-                                        host=multihost)
+        if use_txn and self._txn_name is None:
+            self._build_txn_fn()
+        with monitor("W2V_SHAPE"):
+            blk_u = np.unique(block).astype(np.int32)
+            n_blk = len(blk_u)
+            p_draws = _next_pow2(min(
+                self.neg_pool,
+                max(1024, len(block) * self.config.window
+                    * self.config.negatives)))
+            draws = self._neg_draw(self.rng, (p_draws,)).reshape(-1)
+            # persistent vocab->compact-slot lookup table, reset only at the
+            # touched entries (in ``finally``: a dirty table would map the
+            # next block's draws onto THIS block's slots). Worker threads
+            # that share this trainer take turns with it: two blocks filling
+            # it at once would map each other's tokens onto wrong slots.
+            with self._slot_lut_lock:
+                lut = getattr(self, "_slot_lut", None)
+                if lut is None:
+                    lut = self._slot_lut = np.full(self.config.vocab_size,
+                                                   -1, np.int32)
+                pool_only = None
+                try:
+                    lut[blk_u] = np.arange(n_blk, dtype=np.int32)
+                    pool_only = np.unique(
+                        draws[lut[draws] < 0]).astype(np.int32)
+                    lut[pool_only] = n_blk + np.arange(len(pool_only),
+                                                       dtype=np.int32)
+                    ids_out = np.concatenate([blk_u, pool_only])
+                    slot_alias = lut[draws]
+                    flat = lut[block]
+                finally:
+                    lut[blk_u] = -1
+                    if pool_only is not None:
+                        lut[pool_only] = -1
+
+            # chunk the block at roughly the pair path's update granularity
+            # (batch_pairs pairs ~ bp/window tokens): the max_row_step clamp
+            # is per step
+            G = self.config.neg_sharing
+            chunk = _next_pow2(max(128, self.config.batch_pairs
+                                   // max(self.config.window, 1)))
+            chunk = min(chunk, _next_pow2(max(len(block), G)))
+            if chunk % G:
+                chunk *= G  # keep the grouped-negatives constraint
+            n_chunks = _next_pow2(-(-len(block) // chunk))
+            blocks_c = np.full((n_chunks, chunk), -1, np.int32)
+            blocks_c.reshape(-1)[: len(block)] = flat  # lut-remapped above
+            chunk_draws = self._chunk_draws(n_chunks, chunk, p_draws,
+                                            host=multihost)
+            if use_txn:
+                b_in = max(_next_pow2(n_blk + 1), ROW_GROUP)
+                b_out = max(_next_pow2(len(ids_out) + 1), ROW_GROUP)
+                ids_in_p = np.concatenate(
+                    [blk_u, np.full(b_in - n_blk,
+                                    self.input_table.sentinel_row, np.int32)])
+                ids_out_p = np.concatenate(
+                    [ids_out, np.full(b_out - len(ids_out),
+                                      self.output_table.sentinel_row,
+                                      np.int32)])
+                packed = np.concatenate(
+                    [ids_in_p, ids_out_p, blocks_c.reshape(-1), slot_alias])
         scale = (-1.0 / lr) if self.use_adagrad else 1.0
         opt = self._add_option(lr)
 
         if use_txn:
             # ONE dispatcher op: gather both tables' candidate rows, train,
             # and apply both updates
-            if self._txn_name is None:
-                self._build_txn_fn()
-            b_in = max(_next_pow2(n_blk + 1), ROW_GROUP)
-            b_out = max(_next_pow2(len(ids_out) + 1), ROW_GROUP)
-            ids_in_p = np.concatenate(
-                [blk_u, np.full(b_in - n_blk,
-                                self.input_table.sentinel_row, np.int32)])
-            ids_out_p = np.concatenate(
-                [ids_out, np.full(b_out - len(ids_out),
-                                  self.output_table.sentinel_row, np.int32)])
-            packed = np.concatenate(
-                [ids_in_p, ids_out_p, blocks_c.reshape(-1), slot_alias])
-            st = self.input_table._server_table
-            if multihost:
-                # multihost descriptor: HOST args only (the transaction
-                # uploads them on every rank)
-                worker, scalars = st._option_host(opt)
-            else:
-                worker, scalars = st._option_consts(opt)
-                packed = async_upload(packed, self.device)
-            h = self.input_table.transact_device_async(
-                self._txn_name, [self.output_table],
-                args=(packed, chunk_draws, lr, scale, worker, scalars,
-                      b_in, b_out, n_chunks, chunk))
+            with monitor("W2V_UPLOAD"):
+                st = self.input_table._server_table
+                if multihost:
+                    # multihost descriptor: HOST args only (the transaction
+                    # uploads them on every rank)
+                    worker, scalars = st._option_host(opt)
+                else:
+                    worker, scalars = st._option_consts(opt)
+                    packed = async_upload(packed, self.device)
+                h = self.input_table.transact_device_async(
+                    self._txn_name, [self.output_table],
+                    args=(packed, chunk_draws, lr, scale, worker, scalars,
+                          b_in, b_out, n_chunks, chunk))
             # the candidate gathers happen inside the transaction; keep the
             # pull accounting so "bytes ∝ candidate rows" stays observable
             self.input_table.rows_pulled += n_blk
             self.output_table.rows_pulled += len(ids_out)
             return {"txn": h, "block_len": len(block), "n_in": n_blk,
                     "n_out": len(ids_out), "pairs": -1, "stats": None}
+
+        h_in = self.input_table.get_device_async(blk_u)
+        h_out = self.output_table.get_device_async(ids_out)
+        cached_in = self.input_table.wait_device(h_in, blk_u)
+        cached_out = self.output_table.wait_device(h_out, ids_out)
 
         delta_in, delta_out, stats = self._fast_delta(
             cached_in, cached_out, chunk_draws,
@@ -1308,12 +1380,13 @@ class PSTrainer:
         the pipelined loop)."""
         if pend is None:
             return 0.0
-        if "txn" in pend:
-            # fused transaction: one completion carries the stats triple
-            pend["stats"] = self.input_table.wait(pend["txn"])
-        else:
-            self.input_table.wait(pend["a1"])
-            self.output_table.wait(pend["a2"])
+        with monitor("W2V_FINISH_WAIT"):
+            if "txn" in pend:
+                # fused transaction: one completion carries the stats triple
+                pend["stats"] = self.input_table.wait(pend["txn"])
+            else:
+                self.input_table.wait(pend["a1"])
+                self.output_table.wait(pend["a2"])
         # the word count is a shared tally, not a training round: it goes
         # in as administrative access, outside the BSP/SSP clocks (a table
         # that only ever takes Adds would stall BSP at its second round)

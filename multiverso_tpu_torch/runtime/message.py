@@ -221,6 +221,11 @@ class Message:
     # refused. Replies don't carry it — by reply time the wait is over.
     deadline: float = 0.0
     data: List[Any] = field(default_factory=list)
+    # Host clock (time.perf_counter) at which Server.send queued this
+    # message; 0.0 = never queued. Local to this process, never on the
+    # wire: the dispatcher's SERVER_QUEUE_WAIT_* sections time from it to
+    # the start of the message's apply.
+    sent_at: float = 0.0
 
     def create_reply(self) -> "Message":
         """Reply retraces the path: swap src/dst, negate type."""

@@ -26,7 +26,10 @@ serve and the round gates. The sync watchdog reaps expired remote leases
 (``liveness``, attached by the remote server) and evicts the dead worker
 from the round gates with a flight-recorder dump. In-process requests carry
 ``req_id == 0`` and no deadline, so the admission filter and the traces
-pass them untouched. The lane sort does reorder: a query, or a Get from
+pass them untouched. Every Get and Add records its wait from
+:meth:`Server.send` to the start of its apply (``SERVER_QUEUE_WAIT_GET`` /
+``SERVER_QUEUE_WAIT_ADD``; a fused batch's Adds each up to the fused
+apply). The lane sort does reorder: a query, or a Get from
 the administrative context (worker id -1), drained together with queued
 Adds is answered before them, as the JAX dispatcher does by default.
 
@@ -66,6 +69,16 @@ def _apply_metrics():
             Dashboard.counter("APPLY_BATCHED_MSGS"),
             Dashboard.histogram("APPLY_BATCH_ROWS", bounds=log_bounds(lowest=1.0)),
             Dashboard.gauge("SERVER_QUEUE_DEPTH"))
+
+
+def _queue_wait(msg: Message, name: str) -> None:
+    """Record ``msg``'s wait from :meth:`Server.send` to now, the start of
+    its own apply: its time in the queue and behind the earlier messages
+    of its drain. Into the ``name`` monitor and histogram."""
+    if msg.sent_at:
+        waited = time.perf_counter() - msg.sent_at
+        Dashboard.get(name).observe(waited)
+        observe(name, waited)
 
 
 class _NullCompletion:
@@ -234,6 +247,7 @@ class Server:
 
     # -- client side -------------------------------------------------------
     def send(self, msg: Message) -> None:
+        msg.sent_at = time.perf_counter()
         self._queue.push(msg)
 
     # -- dispatcher --------------------------------------------------------
@@ -291,8 +305,7 @@ class Server:
 
     def _dispatch_guarded(self, msg: Message) -> None:
         try:
-            with monitor("SERVER_DISPATCH_MSG"):
-                self._dispatch(msg)
+            self._dispatch(msg)
         except Exception as exc:  # keep the dispatcher alive; fail the waiter
             log.error("server dispatcher error on %s: %r", msg.type, exc)
             if msg.data and hasattr(msg.data[-1], "fail"):
@@ -355,7 +368,9 @@ class Server:
         merged = None
         if table is not None:
             try:
-                merged = table.merge_add_requests([m.data[0] for m in msgs])
+                # timed: a merge that consumes one request is thrown away
+                with monitor("SERVER_MERGE_ADDS"):
+                    merged = table.merge_add_requests([m.data[0] for m in msgs])
             except Exception as exc:  # merge must never sink the batch
                 log.error("server: merge_add_requests failed on table %d "
                           "(%r); applying per message", table_id, exc)
@@ -378,6 +393,7 @@ class Server:
         for msg in msgs:
             self._wal_append(msg)
             hop(msg.req_id, "apply_add")
+            _queue_wait(msg, "SERVER_QUEUE_WAIT_ADD")
         fused_c, batched_c, rows_h, _gauge = _apply_metrics()
         try:
             with monitor("SERVER_PROCESS_ADD_MSG"):
@@ -424,6 +440,7 @@ class Server:
             log.error("server: unhandled message type %s", msg.type)
 
     def _process_add(self, msg: Message) -> None:
+        _queue_wait(msg, "SERVER_QUEUE_WAIT_ADD")
         with monitor("SERVER_PROCESS_ADD_MSG"):
             request, completion = msg.data
             self._wal_append(msg)
@@ -433,6 +450,7 @@ class Server:
             completion.done(self._tables[msg.table_id].process_add(request))
 
     def _process_get(self, msg: Message) -> None:
+        _queue_wait(msg, "SERVER_QUEUE_WAIT_GET")
         with monitor("SERVER_PROCESS_GET_MSG"):
             request, completion = msg.data
             hop(msg.req_id, "serve_get")
@@ -506,7 +524,9 @@ class DeterministicServer(Server):
                 q or self._det_finished[w] for w, q in enumerate(queues)):
             for w, q in enumerate(queues):
                 if q:
-                    request, _ = q.pop(0).data
+                    msg = q.pop(0)
+                    request, _ = msg.data
+                    _queue_wait(msg, "SERVER_QUEUE_WAIT_ADD")
                     try:
                         with monitor("SERVER_PROCESS_ADD_MSG"):
                             self._tables[table_id].process_add(request)
@@ -705,12 +725,14 @@ class SyncServer(Server):
         request, completion = msg.data
         self._wal_append(msg)
         hop(msg.req_id, "apply_add")
+        _queue_wait(msg, "SERVER_QUEUE_WAIT_ADD")
         with monitor("SERVER_PROCESS_ADD_MSG"):
             completion.done(self._tables[msg.table_id].process_add(request))
 
     def _serve_get(self, msg: Message) -> None:
         request, completion = msg.data
         hop(msg.req_id, "serve_get")
+        _queue_wait(msg, "SERVER_QUEUE_WAIT_GET")
         with monitor("SERVER_PROCESS_GET_MSG"):
             completion.done(self._tables[msg.table_id].process_get(request))
 

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch import log
-from multiverso_tpu_torch.dashboard import monitor
+from multiverso_tpu_torch.dashboard import count, monitor
 from multiverso_tpu_torch.runtime.message import Message, MsgType, next_msg_id
 from multiverso_tpu_torch.runtime.zoo import Zoo
 from multiverso_tpu_torch.utils import Waiter
@@ -230,8 +230,12 @@ class ServerTable:
         a reply. This rank's part only: a table whose rows are split over a
         multi-process world assembles the logical value from every rank's
         read (``MatrixServer.logical_host``, ``ArrayServer.logical_host``),
-        on the lockstep thread only."""
-        return tensor.detach().to("cpu", copy=True).numpy()
+        on the lockstep thread only. Timed as ``SERVER_HOST_READ`` (it waits
+        for the stream), its bytes counted in ``SERVER_HOST_READ_BYTES``."""
+        with monitor("SERVER_HOST_READ"):
+            host = tensor.detach().to("cpu", copy=True).numpy()
+        count("SERVER_HOST_READ_BYTES", host.nbytes)
+        return host
 
     def merge_add_requests(self, requests):
         """Fuse a PREFIX of a drained group of Add requests into ONE request

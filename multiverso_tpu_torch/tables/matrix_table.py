@@ -398,25 +398,30 @@ class MatrixServer(ServerTable):
                                async_upload(delta, self.device), worker, scalars)
             touched: Optional[np.ndarray] = None
         else:
-            row_ids = np.asarray(row_ids, dtype=np.int32).reshape(-1)
-            self._check_row_range(row_ids, "add")
-            values = np.asarray(values, dtype=self.dtype).reshape(-1, self.num_col)
-            if len(row_ids) != len(values):
-                log.fatal("Matrix.add: %d ids but %d value rows", len(row_ids), len(values))
-            # unique ids on every path: the row scatter kernel needs them
-            # and a stateful updater applies once per row. Merging on the
-            # CPU as well keeps the tests on the host code the card runs.
-            row_ids, values = merge_duplicate_rows(row_ids, values)
-            pos, local = self.own_rows(row_ids)
-            if pos is not None:
-                values = values[pos]  # this rank's rows; the rest are peers'
+            # host rows, timed in three sections: the merge, the staging
+            # (bucket, pinned copy, upload issue) and the scatter's issue
+            with monitor("MATRIX_ADD_MERGE"):
+                row_ids = np.asarray(row_ids, dtype=np.int32).reshape(-1)
+                self._check_row_range(row_ids, "add")
+                values = np.asarray(values, dtype=self.dtype).reshape(-1, self.num_col)
+                if len(row_ids) != len(values):
+                    log.fatal("Matrix.add: %d ids but %d value rows", len(row_ids), len(values))
+                # unique ids on every path: the row scatter kernel needs them
+                # and a stateful updater applies once per row. Merging on the
+                # CPU as well keeps the tests on the host code the card runs.
+                row_ids, values = merge_duplicate_rows(row_ids, values)
+                pos, local = self.own_rows(row_ids)
+                if pos is not None:
+                    values = values[pos]  # this rank's rows; the rest are peers'
             if pos is None or len(local):
-                ids_p, vals_p, _ = self._bucket_ids(local, values)
-                if self._linear:
-                    scatter_add_rows(self.data, ids_p, self._signed(vals_p))
-                else:
-                    self._row_update(self.data, self.states, ids_p, vals_p,
-                                     worker, scalars)
+                with monitor("MATRIX_ADD_STAGE"):
+                    ids_p, vals_p, _ = self._bucket_ids(local, values)
+                with monitor("MATRIX_ADD_SCATTER"):
+                    if self._linear:
+                        scatter_add_rows(self.data, ids_p, self._signed(vals_p))
+                    else:
+                        self._row_update(self.data, self.states, ids_p, vals_p,
+                                         worker, scalars)
             touched = row_ids
         if self.is_sparse:
             with self._std_lock:
