@@ -24,7 +24,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    floor (``fill_`` on a one-element tensor, back to back) and CUDA-event
    times at the main path's shape (1024 ids, 1024 id sets in rotation so
    the rows come from HBM) for the kernel, its plain version and the
-   PyTorch library call, beside the bytes bound.
+   PyTorch library call, beside the bytes bound. Then the word2vec chunk
+   step's kernel chain (``csrc/sgns.cu``) against its plain version at the
+   benchmark's chunk (8192 tokens, dim 300, window 5, 5 negatives shared
+   by 8 centres) in both of its spaces (3,000,001 rows with unigram
+   negatives; 180,000 compact rows with a 16,384-slot table): deltas,
+   loss and pairs within float32 reordering, two runs bit for bit; its
+   CUDA-event time, the plain version's, the bytes bound, and the kernels
+   a whole chunk step launches through each (the profiler's count).
 4. The coalesced scatter against its plain version and against the simple
    scatter, exactly: buckets 64..16384 (and 65536 for float32), float32,
    float64 and int32, three id patterns (sorted zipf-unique as word2vec
@@ -60,7 +67,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``rows.COALESCE`` off and on in turns (words/s each), then off and on
    in deterministic mode (end states bitwise equal); a profiled submission; gather, scatter and coalesced
    scatter each launched over the phase; a ``DeviceTrainer`` corpus step
-   over 40 blocks (words/s, finite loss).
+   over 40 blocks (words/s, finite loss). The chunk step's chain launches
+   4 kernels a chunk step over the submissions, the corpus step and the
+   profiled submissions, each counted apart (so too in phases 8, 14's
+   client and 19's ranks).
 7. The consistency servers: the PS phase's 1M x 50 table and four worker
    threads, each round one 1024-row Add and then one 1024-row Get, under
    ``-sync``, ``-ssp_staleness=2`` and ``-deterministic`` (twice, the
@@ -359,6 +369,15 @@ ROW_WIDTHS = [1, 3, 13, 32, 15_552]
 PS_ID_SETS = 1024                          # id sets in rotation at the PS shape
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12                     # H100 SXM non-tensor fp32, data sheet
+# the word2vec chunk step at the benchmark's chunk (w2v_gnews_300), in the
+# device trainer's space (3M words, unigram negatives) and the PS
+# transaction's (about 180,000 compact rows, a 16,384-slot table)
+SGNS_CHUNK = dict(t=8192, dim=300, window=5, negatives=5, group=8)
+SGNS_SPACES = {"device": (3_000_001, False), "ps": (180_000, True)}
+SGNS_SLOTS = 16384
+# the chain against its plain version: float32 sums in another order
+# (tests/test_torch_sgns_chunk.py states the same tolerances)
+SGNS_RTOL, SGNS_ATOL_SCALE, SGNS_LOSS_RTOL = 1e-4, 1e-5, 1e-5
 # word2vec: the bench recipe (bench.py bench_ps_word2vec / bench_word2vec)
 W2V = dict(vocab_size=100_000, dim=128, window=5, negatives=5,
            batch_pairs=32768, block_tokens=8192, sample=0.0, neg_sharing=8)
@@ -662,6 +681,159 @@ def kernel_phase(rows, mesh, dev):
     del table, id_sets, deltas
     torch.cuda.empty_cache()
     return out, floor
+
+
+def host_us(fn, iters: int) -> float:
+    """Host microseconds per call of ``fn`` while a sleep kernel holds the
+    stream: the issue alone, not the device's time."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def sgns_inputs(rng, rows: int, neg_table: bool, dev, c=SGNS_CHUNK):
+    """Tables of ``rows`` rows (the first 100,000, or all but the sentinel
+    where fewer, uniform in +-0.5/dim), a zipf chunk with a padded tail,
+    and its draws."""
+    vocab = min(rows - 1, 100_000)
+    w_in = torch.zeros((rows, c["dim"]), device=dev)
+    w_out = torch.zeros((rows, c["dim"]), device=dev)
+    w_in[:vocab].uniform_(-0.5 / c["dim"], 0.5 / c["dim"])
+    w_out[:vocab].uniform_(-0.5, 0.5)
+    block = zipf_tokens(rng, c["t"], vocab).astype(np.int32)
+    block[-300:] = -1
+    tg = c["t"] // c["group"]
+    win = torch.from_numpy(rng.integers(1, c["window"] + 1, c["t"])).to(dev)
+    slots = None
+    if neg_table:
+        slots = torch.from_numpy(
+            rng.integers(0, vocab, SGNS_SLOTS).astype(np.int32)).to(dev)
+        neg = rng.integers(0, SGNS_SLOTS, (tg, c["negatives"]))
+    else:
+        neg = rng.integers(0, vocab, (tg, c["negatives"]))
+    return (w_in, w_out, torch.from_numpy(block).to(dev), win,
+            torch.from_numpy(neg).to(dev), slots)
+
+
+def sgns_bytes(args, chunk) -> int:
+    """The least bytes a chunk of the chain moves: each distinct table row
+    it reads once, each delta row and id written once, the chunk and its
+    draws read once."""
+    w_in, w_out, block, win, neg, slots = args
+    dim = w_in.shape[1]
+    rows_read = (int(torch.unique(chunk.ids_in).numel())
+                 + int(torch.unique(torch.cat([chunk.ids_out,
+                                               chunk.ids_neg])).numel()))
+    rows_written = chunk.d_in.shape[0] + chunk.d_out.shape[0] + chunk.d_neg.shape[0]
+    return (4 * dim * (rows_read + rows_written) + 8 * rows_written
+            + block.numel() * block.element_size()
+            + win.numel() * win.element_size()
+            + neg.numel() * neg.element_size()
+            + (0 if slots is None else neg.numel() * slots.element_size()))
+
+
+def sgns_phase(dev, card: str) -> dict:
+    """The chunk step's kernel chain against its plain version at the
+    benchmark's chunk, in both spaces; times, the bytes bound, and the
+    kernels one chunk step launches through the chain and through the
+    eager body (``cuda_kernels``)."""
+    from multiverso_tpu_torch.models import word2vec as w2v_mod
+    from multiverso_tpu_torch.models.vocab import Dictionary
+    from multiverso_tpu_torch.ops import sgns
+
+    c = SGNS_CHUNK
+    kw = dict(window=c["window"], negatives=c["negatives"], group=c["group"],
+              max_row_step=1.0)
+    rng = np.random.default_rng(18)
+    out = {}
+    for space, (rows, neg_table) in SGNS_SPACES.items():
+        args = sgns_inputs(rng, rows, neg_table, dev)
+        err = {}
+        for combine in ("sum", "mean"):
+            a = sgns.sgns_chunk(*args, 0.025, combine=combine, **kw)
+            b = sgns.sgns_chunk(*args, 0.025, combine=combine, **kw)
+            want = sgns.sgns_chunk_plain(*args, 0.025, combine=combine, **kw)
+            torch.cuda.synchronize()
+            for name, x, y, z in zip(sgns.ChunkDeltas._fields, a, b, want):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"sgns {space}/{combine} {name}: two "
+                                         f"runs differ")
+                if name.startswith("ids") or name == "pairs":
+                    if not torch.equal(x, z):
+                        raise AssertionError(f"sgns {space}/{combine} {name} "
+                                             f"!= plain")
+                    continue
+                rtol = SGNS_LOSS_RTOL if name == "loss" else SGNS_RTOL
+                atol = (0.0 if name == "loss" else
+                        SGNS_ATOL_SCALE * float(z.abs().max()))
+                torch.testing.assert_close(
+                    x, z, rtol=rtol, atol=atol,
+                    msg=lambda m: f"sgns {space}/{combine} {name}: {m}")
+                err[f"{combine}/{name}"] = float((x - z).abs().max())
+        chunk = sgns.sgns_chunk(*args, 0.025, combine="sum", **kw)
+        nbytes = sgns_bytes(args, chunk)
+        ms = device_ms(lambda: sgns.sgns_chunk(*args, 0.025, **kw), 200)
+        plain_ms = device_ms(lambda: sgns.sgns_chunk_plain(*args, 0.025, **kw),
+                             20)
+        busy = {k: profile(lambda f=f: f(*args, 0.025, **kw))["device_busy_ms"]
+                for k, f in (("chain", sgns.sgns_chunk),
+                             ("plain", sgns.sgns_chunk_plain))}
+
+        # one whole chunk step (draws, chain or eager body, three scatters)
+        cfg = w2v_mod.Word2VecConfig(
+            vocab_size=100_000, dim=c["dim"], window=c["window"],
+            negatives=c["negatives"], block_tokens=c["t"],
+            neg_sharing=c["group"], sample=0.0)
+        d = Dictionary()
+        d.counts = w2v_counts(100_000)
+        step = w2v_mod.make_block_train_step(cfg, d, neg_table=neg_table,
+                                             device=dev)
+        sampler = None if neg_table else w2v_mod.unigram_negative_sampler(
+            d.counts, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        w_in, w_out, block, _, _, slots = args
+        params = {"w_in": w_in, "w_out": w_out}
+
+        def eager_step():
+            t, tg = c["t"], c["t"] // c["group"]
+            win = torch.randint(1, c["window"] + 1, (t,), generator=gen,
+                                device=dev)
+            neg = (torch.randint(0, SGNS_SLOTS, (tg, c["negatives"]),
+                                 generator=gen, device=dev)
+                   if neg_table else sampler((tg, c["negatives"]), gen))
+            ch = sgns.sgns_chunk_plain(w_in, w_out, block, win, neg, slots,
+                                       0.025, combine="sum", **kw)
+            w2v_mod._add_rows(w_in, ch.ids_in, ch.d_in, False)
+            w2v_mod._add_rows(w_out, ch.ids_out, ch.d_out, False)
+            w2v_mod._add_rows(w_out, ch.ids_neg, ch.d_neg, False)
+
+        before = sgns.sgns_chunk.launches
+        step_kernels = cuda_kernels(lambda: step(params, gen, block, 0.025,
+                                                 slots))
+        chain_launches = sgns.sgns_chunk.launches - before
+        host = {"chain_us": host_us(
+                    lambda: sgns.sgns_chunk(*args, 0.025, **kw), 100),
+                "step_us": host_us(
+                    lambda: step(params, gen, block, 0.025, slots), 50)}
+        out[space] = {
+            "rows": rows, "neg_table": neg_table, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "device_busy_ms": busy["chain"], "plain_device_busy_ms": busy["plain"],
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "step_kernels": step_kernels, "step_chain_launches": chain_launches,
+            "eager_step_kernels": cuda_kernels(eager_step), "host": host}
+        del args, params, chunk, w_in, w_out
+        torch.cuda.empty_cache()
+    print(f"sgns chunk (T {c['t']}, D {c['dim']}, W {c['window']}, K "
+          f"{c['negatives']}, G {c['group']}) on {card}: {json.dumps(out)}",
+          flush=True)
+    return out
 
 
 def launch_floor_ms(dev, iters: int = 400) -> float:
@@ -1170,6 +1342,30 @@ def numpy_draws(seed: int, window: int, negatives: int):
     return hook
 
 
+def w2v_chunks(config, tokens: int) -> int:
+    """Chunk steps one ``PSTrainer`` submission of ``tokens`` tokens runs:
+    the chunk layout of ``PSTrainer._submit_block_fast``, restated so that
+    the smoke holds the chain's launch counter to it."""
+    from multiverso_tpu_torch.utils import next_pow2
+    g = config.neg_sharing
+    chunk = next_pow2(max(128, config.batch_pairs // max(config.window, 1)))
+    chunk = min(chunk, next_pow2(max(tokens, g)))
+    if chunk % g:
+        chunk *= g
+    return next_pow2(-(-tokens // chunk))
+
+
+def check_sgns_launches(where: str, got: int, chunks: int, device: str) -> int:
+    """The chain's launches over a run of ``chunks`` chunk steps: KERNELS
+    a chunk on the card, none on the CPU (the plain version)."""
+    from multiverso_tpu_torch.ops import sgns
+    want = sgns.KERNELS * chunks if device == "cuda" else 0
+    if got != want:
+        raise AssertionError(f"sgns_chunk over {where}: {got} launches, "
+                             f"{want} for {chunks} chunk steps")
+    return got
+
+
 def word2vec_phase(mvt, rows, device: str, card: str, w2v=None,
                    group: int = W2V_GROUP, submissions: int = W2V_SUBMISSIONS,
                    device_blocks: int = W2V_DEVICE_BLOCKS):
@@ -1183,6 +1379,7 @@ def word2vec_phase(mvt, rows, device: str, card: str, w2v=None,
     from multiverso_tpu_torch.models.word2vec import (
         DeviceTrainer, PSTrainer, Word2VecConfig, init_params,
         make_corpus_train_step)
+    from multiverso_tpu_torch.ops import sgns
 
     w2v = dict(W2V, **(w2v or {}))
     config = Word2VecConfig(**w2v)
@@ -1244,7 +1441,8 @@ def word2vec_phase(mvt, rows, device: str, card: str, w2v=None,
         finally:
             mvt.shutdown()
 
-    for k in (rows.gather_rows, rows.scatter_add_rows, rows.scatter_add_rows_coalesced):
+    for k in (rows.gather_rows, rows.scatter_add_rows,
+              rows.scatter_add_rows_coalesced, sgns.sgns_chunk):
         k.launches = 0
     # with COALESCE off the pushes take the simple scatter, with it on the
     # coalesced one; the CPU runs the plain versions either way
@@ -1294,8 +1492,15 @@ def word2vec_phase(mvt, rows, device: str, card: str, w2v=None,
         for a, b in zip(runs["default"][0][:2], simple[:2]))
     launches = {k.__name__: k.launches for k in (
         rows.gather_rows, rows.scatter_add_rows, rows.scatter_add_rows_coalesced)}
+    # the chain on the card's submissions: two of one block, then the runs'
+    launches["sgns_chunk"] = check_sgns_launches(
+        "the PS submissions", sgns.sgns_chunk.launches,
+        2 * w2v_chunks(config, T)
+        + len(turns) * submissions * w2v_chunks(config, group * T), device)
 
-    # the tables-free twin: the corpus step over device_blocks blocks
+    # the tables-free twin: the corpus step over device_blocks blocks, a
+    # chunk a block; run three times (warm, timed, profiled)
+    sgns.sgns_chunk.launches = 0
     dt = DeviceTrainer(config, d, device=device)
     step = make_corpus_train_step(config, d, device=dt.device)
     stack = torch.from_numpy(np.stack(blocks[:device_blocks])).to(dt.device)
@@ -1312,9 +1517,15 @@ def word2vec_phase(mvt, rows, device: str, card: str, w2v=None,
     metrics["device_loss"] = loss
     metrics["device_profile"] = profile(
         lambda: float(step(dt.params, dt.generator, stack, config.lr)[1]))
+    launches["sgns_chunk_corpus_step"] = check_sgns_launches(
+        "the corpus step", sgns.sgns_chunk.launches, 3 * device_blocks, device)
     del dt, step, stack
     if submissions > 1:
+        sgns.sgns_chunk.launches = 0
         metrics["ps_profile"] = profiled_submission()
+        launches["sgns_chunk_profiled_submissions"] = check_sgns_launches(
+            "the profiled submissions", sgns.sgns_chunk.launches,
+            2 * w2v_chunks(config, group * T), device)
     return metrics, launches
 
 
@@ -1533,6 +1744,7 @@ def staged_word2vec_phase(mvt, rows, device: str, card: str, w2v=None,
     from multiverso_tpu_torch.models.vocab import Dictionary
     from multiverso_tpu_torch.models.word2vec import (PSTrainer, Word2VecConfig,
                                                       init_params)
+    from multiverso_tpu_torch.ops import sgns
 
     config = Word2VecConfig(**dict(W2V, **(w2v or {})))
     V, T = config.vocab_size, config.block_tokens
@@ -1598,12 +1810,16 @@ def staged_word2vec_phase(mvt, rows, device: str, card: str, w2v=None,
           f"(rtol {W2V_RTOL}, atol {W2V_ATOL}; max |diff| {diff}) ({card})",
           flush=True)
 
-    for k in (rows.gather_rows, rows.scatter_add_rows):
+    for k in (rows.gather_rows, rows.scatter_add_rows, sgns.sgns_chunk):
         k.launches = 0
     bsp = run(device, "bsp", 1, blocks_per_worker)
     ssp = run(device, "ssp2", 2, blocks_per_worker)
     det = [run(device, "deterministic", 1, blocks_per_worker) for _ in range(2)]
     launches = {k.__name__: k.launches for k in (rows.gather_rows, rows.scatter_add_rows)}
+    # a block a submission: one worker, two, then one twice
+    launches["sgns_chunk"] = check_sgns_launches(
+        "the staged runs", sgns.sgns_chunk.launches,
+        5 * blocks_per_worker * w2v_chunks(config, T), device)
     metrics.update({
         "bsp_1worker_words_per_s": bsp[3], "bsp_losses": bsp[2],
         "ssp2_2workers_words_per_s": ssp[3],
@@ -3353,10 +3569,12 @@ def client_w2v(mvt, s: dict) -> dict:
     and count tables; the step runs on ``device`` in this process. One
     block, then (after GO) ``timed`` blocks through the pipelined loop."""
     from multiverso_tpu_torch.models.word2vec import PSTrainer
+    from multiverso_tpu_torch.ops import sgns
     config, d = w2v_setup(s.get("w2v"))
     rng = np.random.default_rng(0)
     blocks = [zipf_tokens(rng, config.block_tokens, config.vocab_size)
               for _ in range(1 + s["timed"])]
+    sgns.sgns_chunk.launches = 0
     mvt.init(device=s["device"])
     try:
         tr = PSTrainer(config, d)
@@ -3375,6 +3593,7 @@ def client_w2v(mvt, s: dict) -> dict:
             wall = time.perf_counter() - t0  # train() ends on a stats read
             out.update(words_per_s=(tr.words_trained - len(blocks[0])) / wall,
                        blocks=s["timed"], seconds=wall)
+        out["sgns_launches"] = sgns.sgns_chunk.launches
         client.close()
         return out
     finally:
@@ -3736,10 +3955,15 @@ def serve_w2v_leg(mvt, rows, device: str, pool: ClientPool, w2v=None,
         res = card.result()
         launches = launch_counts(rows)
         words = int(tr.count_table.get(0))
+        # remote proxies have no device IO and no transaction, so the
+        # client trains by the pair step: the chain runs no chunk there
+        check_sgns_launches("the served client", res["sgns_launches"], 0,
+                            device)
         return {"words_per_s": res["words_per_s"], "blocks": res["blocks"],
                 "card_vs_cpu_max_abs": err, "loss_block1": res["loss"],
                 "loss_block1_cpu": cpu_res["loss"],
-                "words_counted": words}, launches
+                "words_counted": words,
+                "client_sgns_launches": res["sgns_launches"]}, launches
     finally:
         stop_runtime(mvt)
 
@@ -6184,6 +6408,8 @@ def multihost_rank_main(argv) -> int:
     mvt.process_barrier()
 
     # leg 2: word2vec at configuration 2's width, ranks in turn
+    from multiverso_tpu_torch.ops import sgns
+    sgns.sgns_chunk.launches = 0
     trainer, losses, secs = mh_w2v_run(
         mvt, sz, lambda i: i % world == rank, mvt.process_barrier)
     with mvt.worker(0):
@@ -6192,7 +6418,8 @@ def multihost_rank_main(argv) -> int:
     out["w2v"] = {"losses": {str(i): v for i, v in losses.items()},
                   "seconds": secs, "in_digest": mh_digest(w_in),
                   "out_digest": mh_digest(w_out),
-                  "words": sz["blocks"] * W2V["block_tokens"]}
+                  "words": sz["blocks"] * W2V["block_tokens"],
+                  "sgns_launches": sgns.sgns_chunk.launches}
     if rank == 0:
         np.save(os.path.join(outdir, "w2v_in.npy"), w_in)
         np.save(os.path.join(outdir, "w2v_out.npy"), w_out)
@@ -6408,6 +6635,13 @@ def multihost_phase(mvt, device: str, scratch: str,
             # the wrappers count launches of the kernels: on the card only
             if device == "cuda" and c <= 0:
                 raise AssertionError(f"{k}: no launch in {rank}")
+    # every rank replays every block's transaction, so each runs them all
+    from multiverso_tpu_torch.models.word2vec import Word2VecConfig
+    config = Word2VecConfig(**mh_w2v_config(sz))
+    for x in res:
+        launches[f"rank{x['rank']}"]["sgns_chunk"] = check_sgns_launches(
+            f"leg 2 in rank {x['rank']}", x["w2v"]["sgns_launches"],
+            sz["blocks"] * w2v_chunks(config, config.block_tokens), device)
     m["phase_s"] = time.perf_counter() - t_phase
     return m, launches
 
@@ -6933,12 +7167,14 @@ def smoke(args, scratch: str) -> int:
     name = torch.cuda.get_device_name(0)
 
     # 2. build
-    t0 = time.perf_counter()
-    kernels.load("rows")
-    print(f"built csrc/rows.cu in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in kernels.build_logs.get("rows", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for lib in ("rows", "sgns"):
+        t0 = time.perf_counter()
+        kernels.load(lib)
+        print(f"built csrc/{lib}.cu in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for line in kernels.build_logs.get(lib, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
     # the native library (C API, codecs, reader): g++ at first use, here
     t0 = time.perf_counter()
     native.load()
@@ -6947,6 +7183,7 @@ def smoke(args, scratch: str) -> int:
 
     # 3. kernels
     results, floor = kernel_phase(rows, mesh, dev)
+    sgns_chain = sgns_phase(dev, card)
     print(f"launch floor: {floor} ms a call of fill_ on a one-element tensor, "
           f"back to back ({card})", flush=True)
     print(f"kernel times, ms per call at the 64-slot bucket (64 random ids "
@@ -7165,6 +7402,31 @@ def smoke(args, scratch: str) -> int:
                           rank: c.get(k, 0) for rank, c in mh_launches.items()},
                       # phase 20: launches through the C API
                       "c_api_launches": native_launches.get(k, 0)})
+    # the chain's launches on the main paths, each phase's counter zeroed
+    # before it and held there to KERNELS a chunk step it ran (phase 3's
+    # own timing calls are not among them)
+    sgns_launches = {
+        "word2vec_ps_submissions": w2v_launches["sgns_chunk"],
+        "word2vec_corpus_step": w2v_launches["sgns_chunk_corpus_step"],
+        "word2vec_profiled_submissions":
+            w2v_launches["sgns_chunk_profiled_submissions"],
+        "staged_word2vec": staged_launches["sgns_chunk"],
+        "served_word2vec_client": serve["5_word2vec"]["client_sgns_launches"]}
+    print(f"kernel sgns_chunk: launches={json.dumps(sgns_launches)} "
+          f"multihost_rank_launches="
+          f"{json.dumps({r: c['sgns_chunk'] for r, c in mh_launches.items()})} "
+          f"chunk_ms={ {k: v['ms'] for k, v in sgns_chain.items()} } "
+          f"plain_ms={ {k: v['plain_ms'] for k, v in sgns_chain.items()} } "
+          f"bound_ms={ {k: v['bound_ms'] for k, v in sgns_chain.items()} } "
+          f"({card})")
+    table.append({"name": "sgns_chunk", "route": "cuda",
+                  "source": "multiverso_tpu_torch/csrc/sgns.cu",
+                  "replaces": "none (the JAX block step is one jit)",
+                  "launches": sgns_launches,
+                  "multihost_rank_launches": {
+                      rank: c["sgns_chunk"] for rank, c in mh_launches.items()},
+                  "bound_by": "bytes", "launch_floor_ms": floor,
+                  "spaces": sgns_chain})
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": table}))

@@ -11,7 +11,10 @@ The math is the JAX package's, step for step: the structured block step
 output rows, shared negatives), the pair step with its stability clamp,
 and the two trainers. What changes with the framework:
 
-* Each step is eager torch. ``jax.lax.scan`` is a Python loop; steps
+* Each step is eager torch, but for the block step's chunk on a card:
+  from token ids and draws to its row deltas it is a chain of four
+  hand-written kernels (``ops/sgns.py``, ``csrc/sgns.cu``), where XLA
+  fused the JAX step. ``jax.lax.scan`` is a Python loop; steps
   update the parameter tensors in place (``index_add_`` for the
   duplicate-accumulating scatters inside a step) and return them. On CUDA
   ``index_add_`` sums duplicate rows with atomics in a varying order, so
@@ -77,6 +80,9 @@ from multiverso_tpu_torch.models.vocab import Dictionary, HuffmanEncoder
 from multiverso_tpu_torch.ops.rows import ROW_GROUP, gather_rows
 from multiverso_tpu_torch.ops.sampling import (build_alias_table,
                                                unigram_negative_sampler)
+from multiverso_tpu_torch.ops.sgns import (row_step_scale as _row_step_scale,
+                                           scale_from_count as _scale_from_count,
+                                           sgns_chunk)
 from multiverso_tpu_torch.parallel import mesh as mesh_lib
 from multiverso_tpu_torch.runtime.programs import register_program
 from multiverso_tpu_torch.runtime.zoo import Zoo
@@ -181,14 +187,6 @@ def _hs_targets(targets, codes, points, code_mask):
     return ids, labels, mask
 
 
-def _scale_from_count(count: torch.Tensor, lr, cap: float) -> torch.Tensor:
-    """Stability clamp from a per-row occurrence count: rows whose
-    occurrence-weighted step budget lr·count exceeds ``cap`` are scaled so
-    their total batch step equals the cap; all others keep exact sum
-    semantics."""
-    return torch.clamp(cap / torch.clamp(lr * count, min=1e-6), max=1.0)
-
-
 def _ordered_adds() -> bool:
     """Whether a step being built adds rows in index order: under the
     ``deterministic`` flag (the deterministic server's contract)."""
@@ -204,15 +202,6 @@ def _add_rows(table: torch.Tensor, ids: torch.Tensor, deltas: torch.Tensor,
         table.index_put_((ids,), deltas, accumulate=True)
     else:
         table.index_add_(0, ids, deltas)
-
-
-def _row_step_scale(num_rows: int, row_ids: torch.Tensor,
-                    occ_weights: torch.Tensor, lr, cap: float) -> torch.Tensor:
-    """:func:`_scale_from_count` over a scatter-aggregated count."""
-    count = torch.zeros(num_rows, dtype=torch.float32, device=row_ids.device)
-    count.index_add_(0, row_ids.reshape(-1),
-                     occ_weights.reshape(-1).to(torch.float32))
-    return _scale_from_count(count, lr, cap)
 
 
 def _sgns_core(w_in, w_out, in_ids, in_weights, out_ids, labels, mask, lr,
@@ -340,8 +329,11 @@ def make_block_train_step(config: Word2VecConfig, dictionary: Dictionary,
     are uniform draws over ``neg_slots`` (the PS path's slot-alias table);
     otherwise the unigram^0.75 sampler. ``draws`` = {"win": (T,),
     "neg": (T/G, K)} replaces the generator's draws. The sampler lives on
-    ``device`` (``cuda`` unless the CPU is asked for). Under the
-    ``deterministic`` flag it adds rows in index order.
+    ``device`` (``cuda`` unless the CPU is asked for). The chunk's deltas
+    come from :func:`~multiverso_tpu_torch.ops.sgns.sgns_chunk` (the
+    kernels of ``csrc/sgns.cu`` on a card, the eager plain version on the
+    CPU) and go in by three scatters; under the ``deterministic`` flag
+    they add rows in index order.
     """
     if config.mode != "sg" or config.objective != "ns":
         log.fatal("block step supports sg+ns (the benchmark path)")
@@ -352,20 +344,12 @@ def make_block_train_step(config: Word2VecConfig, dictionary: Dictionary,
     window = config.window
     negatives = config.negatives
     combine = config.grad_combine
-    offsets = [o for o in range(-window, window + 1) if o != 0]     # (2W,)
     G = config.neg_sharing
 
     def step(params, generator, block, lr, neg_slots=None, with_pairs=False,
              draws=None):
-        # Structured form: keep the (T, 2W) pair layout. The input row of a
-        # center is gathered ONCE for its 2W pairs, negatives are shared per
-        # center, and gradients are pre-reduced over the window axis
-        # before scattering.
         w_in, w_out = params["w_in"], params["w_out"]
         dev = w_in.device
-        sentinel_in = w_in.shape[0] - 1
-        sentinel_out = w_out.shape[0] - 1
-        block = block.to(dev, torch.int64)
         t = block.shape[0]
         if t % G:  # defensive: caller passed a non-config-sized block
             log.fatal("neg_sharing %d must divide block length %d", G, t)
@@ -379,105 +363,17 @@ def make_block_train_step(config: Word2VecConfig, dictionary: Dictionary,
             neg = (torch.randint(0, neg_slots.shape[0], (tg, negatives),
                                  generator=generator, device=dev)
                    if neg_table else sampler((tg, negatives), generator))
-        off = torch.tensor(offsets, dtype=torch.int64, device=dev)
-        valid_tok = block >= 0
-        pos = torch.arange(t, device=dev)
-        ctx_pos = pos[:, None] + off[None, :]                       # (T, 2W)
-        in_range = (ctx_pos >= 0) & (ctx_pos < t)
-        contexts = block[torch.clamp(ctx_pos, 0, t - 1)]            # (T, 2W)
-        pair_mask = (in_range & (off.abs()[None, :] <= b[:, None])
-                     & valid_tok[:, None] & (contexts >= 0))        # (T, 2W)
-        pm = pair_mask.to(torch.float32)
-        npairs = pm.sum(dim=1)                                      # (T,)
-        active = npairs > 0
-
-        centers_id = torch.where(valid_tok & active, block, sentinel_in)
-        blk_out_ids = torch.where(valid_tok, block, sentinel_out)   # (T,)
-        act_g = active.reshape(tg, G)
-        negs_c = neg_slots.long()[neg] if neg_table else neg        # (TG, K)
-        negs_id = torch.where(act_g.any(dim=1)[:, None], negs_c,
-                              sentinel_out)                         # (TG, K)
-
-        v = w_in[centers_id]                                        # (T, D)
-        # every positive context row is some block position's own w_out
-        # row: ONE (T, D) gather serves all 2W offsets via rolls
-        u_blk = w_out[blk_out_ids]                                  # (T, D)
-        u_neg = w_out[negs_id]                                      # (TG, K, D)
-        vg = v.reshape(tg, G, v.shape[1])                           # (TG, G, D)
-
-        s_neg = torch.einsum("gcd,gkd->gck", vg, u_neg)             # (TG, G, K)
-        # negatives are shared across the center's pairs -> their per-pair
-        # gradients coincide; the pair-mean is just sigmoid(s)
-        g_neg = torch.sigmoid(s_neg) * act_g[:, :, None]            # (TG, G, K)
-
-        loss_pos = torch.zeros((), dtype=torch.float32, device=dev)
-        grad_v_pos = torch.zeros_like(v)
-        g_out_local = torch.zeros_like(u_blk)  # positive grads by POSITION
-        occ_ctx = torch.zeros(t, dtype=torch.float32, device=dev)
-        for j, o in enumerate(offsets):        # 2W
-            u_o = torch.roll(u_blk, -o, dims=0)  # row t -> w_out[block[t+o]]
-            pmj = pm[:, j]                     # edge wraps masked by pm
-            s = torch.sum(v * u_o, dim=1)                           # (T,)
-            g = (torch.sigmoid(s) - 1.0) * pmj
-            loss_pos = loss_pos + torch.sum(F.logsigmoid(s) * pmj)
-            grad_v_pos += g[:, None] * u_o
-            # the contribution of center t lands on context POSITION t+o
-            g_out_local += torch.roll(g[:, None] * v, o, dims=0)
-            occ_ctx += torch.roll(pmj, o)
-
-        # each of a center's npairs pairs contributes the same
-        # shared-negative term, so the negative loss scales by npairs
-        n_terms = pm.sum() * (1 + negatives)
-        npg = npairs.reshape(tg, G)
-        loss = (-loss_pos
-                - (F.logsigmoid(-s_neg).sum(dim=2) * npg).sum()
-                ) / torch.clamp(n_terms, min=1.0)
-
-        # per-center shared-negative input gradient (both combine modes)
-        neg_v = torch.einsum("gck,gkd->gcd", g_neg, u_neg).reshape(t, -1)
-        if combine == "sum":
-            grad_v = grad_v_pos + npairs[:, None] * neg_v           # (T, D)
-            grad_u_neg = torch.einsum("gck,gcd,gc->gkd", g_neg, vg, npg)
-            neg_occ = npg.sum(dim=1)[:, None].expand(tg, negatives)
-        else:
-            grad_v = (grad_v_pos / torch.clamp(npairs, min=1.0)[:, None]
-                      + neg_v)                                      # (T, D)
-            grad_u_neg = torch.einsum("gck,gcd->gkd", g_neg, vg)    # (TG, K, D)
-            neg_occ = act_g.sum(dim=1).to(torch.float32)[:, None].expand(
-                tg, negatives)
-
-        # one combined out-row occurrence map
-        out_count = torch.zeros(w_out.shape[0], dtype=torch.float32, device=dev)
-        out_count.index_add_(0, blk_out_ids, occ_ctx)
-        out_count.index_add_(0, negs_id.reshape(-1), neg_occ.reshape(-1))
-        if combine == "mean":
-            in_count = torch.zeros(w_in.shape[0], dtype=torch.float32,
-                                   device=dev)
-            in_count.index_add_(0, centers_id,
-                                torch.ones(t, dtype=torch.float32, device=dev))
-            gin = grad_v / in_count[centers_id][:, None]
-            denom = torch.clamp(out_count, min=1.0)
-            g_out_local = g_out_local / denom[blk_out_ids][:, None]
-            grad_u_neg = grad_u_neg / denom[negs_id][:, :, None]
-        else:
-            # occurrence-units are pairs: npairs per center position, pm per
-            # positive out-entry, npairs per negative out-entry
-            cap = config.max_row_step
-            in_scale = _row_step_scale(w_in.shape[0], centers_id, npairs,
-                                       lr, cap)
-            out_scale = _scale_from_count(out_count, lr, cap)
-            gin = grad_v * in_scale[centers_id][:, None]
-            g_out_local = g_out_local * out_scale[blk_out_ids][:, None]
-            grad_u_neg = grad_u_neg * out_scale[negs_id][:, :, None]
-        dim = w_in.shape[1]
-        _add_rows(w_in, centers_id, -lr * gin, ordered)
-        _add_rows(w_out, blk_out_ids, -lr * g_out_local, ordered)
-        _add_rows(w_out, negs_id.reshape(-1),
-                  (-lr * grad_u_neg).reshape(-1, dim), ordered)
+        c = sgns_chunk(w_in, w_out, block.to(dev), b, neg,
+                       neg_slots if neg_table else None, lr, window=window,
+                       negatives=negatives, group=G, combine=combine,
+                       max_row_step=config.max_row_step)
+        _add_rows(w_in, c.ids_in, c.d_in, ordered)
+        _add_rows(w_out, c.ids_out, c.d_out, ordered)
+        _add_rows(w_out, c.ids_neg, c.d_neg, ordered)
         params = {"w_in": w_in, "w_out": w_out}
         if with_pairs:
-            return params, loss, pm.sum()
-        return params, loss
+            return params, c.loss, c.pairs
+        return params, c.loss
 
     return step
 

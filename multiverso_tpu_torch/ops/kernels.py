@@ -47,6 +47,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
            for s in _DTYPES},
         "mvt_gather_rows": _ROWS_ARGS + _GEOMETRY + (_PTR,),
     },
+    "sgns": {
+        # (w_in, ld_in, rows_in, w_out, ld_out, rows_out, block, win, neg,
+        # slots, n_slots, T, D, W, K, G, flags, lr, cap, ids, deltas,
+        # scratch, scratch_floats, result, stream)
+        "mvt_sgns_chunk": ((_PTR, _I64, _I64) * 2 + (_PTR,) * 4
+                           + (_I64,) * 7 + (ctypes.c_double,) * 2
+                           + (_PTR,) * 3 + (_I64, _PTR, _PTR)),
+    },
 }
 
 _lock = threading.Lock()

@@ -134,6 +134,12 @@ def _sanitizers(request):
         pytest.fail("\n\n".join(failures), pytrace=False)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skipped where there is none "
+        "(the test decides inside a fixture)")
+
+
 def pytest_sessionfinish(session, exitstatus):
     """Ship the lockcheck session summary with the chaos artifacts."""
     if not MV_LOCKCHECK:
