@@ -15,8 +15,8 @@ parameters through Multiverso tables every batch
   ``m = mu*m + g + wd*p; p -= lr*m`` (``torch.optim.sgd.sgd``, which
   computes exactly that), the forward under bfloat16 autocast by default;
 - :class:`ASGDTrainer`: worker threads with local replicas syncing their
-  deltas through ONE ArrayTable via ``PytreeParamManager`` views every
-  ``sync_freq`` batches.
+  deltas through ONE ArrayTable every ``sync_freq`` batches, through the
+  model-agnostic trainer of ``ext/asgd.py``.
 
 The model's layers are the flax model's: convolutions 3x3 without bias,
 GroupNorm (8 groups, epsilon 1e-6) or BatchNorm (flax's momentum 0.9 and
@@ -35,10 +35,8 @@ Entry points run on ``cuda`` unless the caller asks for the CPU.
 from __future__ import annotations
 
 import copy
-import threading
-import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +46,7 @@ from torch.func import functional_call
 from torch.optim.sgd import sgd
 
 from multiverso_tpu_torch import log
+from multiverso_tpu_torch.ext import asgd
 from multiverso_tpu_torch.parallel import mesh as mesh_lib
 
 
@@ -291,11 +290,11 @@ def evaluate(model: CifarResNet, config: ResNetConfig, variables, images,
     return correct / len(images)
 
 
-class ASGDTrainer:
+class ASGDTrainer(asgd.ASGDTrainer):
     """N worker threads, each with a local replica, syncing through ONE
-    ArrayTable via ``PytreeParamManager`` — the reference benchmark's
-    topology (``binding/lua/docs/BENCHMARK.md:39``: 8 processes, sync per
-    batch) with threads instead of MPI ranks.
+    ArrayTable (``ext/asgd.py``) — the reference benchmark's topology
+    (``binding/lua/docs/BENCHMARK.md:39``: 8 processes, sync per batch)
+    with threads instead of MPI ranks.
 
     Only ``params`` crosses the table: momentum is worker-local (the
     reference's torch optimizers were per-process too), and BatchNorm
@@ -307,24 +306,15 @@ class ASGDTrainer:
     def __init__(self, config: ResNetConfig, workers: int = 4,
                  sync_freq: int = 1, input_shape=(32, 32, 3),
                  pipeline: bool = False) -> None:
-        from multiverso_tpu_torch.ext import PytreeParamManager
         from multiverso_tpu_torch.runtime.zoo import Zoo
         self.device = Zoo.instance().device
         self.config = config
-        self.workers = workers
-        self.sync_freq = sync_freq
-        # pipeline=True: per-batch syncs use the one-round-stale
-        # sync_pipelined path — the sync overlaps the next batch's compute
-        self.pipeline = bool(pipeline)
         self.model, variables = init_resnet(
             config, 0, (1,) + tuple(input_shape), self.device)
         self._state0 = train_state(self.model, config, variables)
         self.final_state = None
-        self.sync_seconds: list = []
-        # ONE manager (one table) for the trainer's lifetime, created here
-        # so CheckpointDriver([trainer.manager.table], ...) can be set up
-        # before train() runs
-        self.manager = PytreeParamManager(self._state0["params"])
+        super().__init__(self._state0["params"], workers, sync_freq,
+                         pipeline)
 
     def train(self, images: np.ndarray, labels: np.ndarray, epochs: int = 1,
               batch: int = 128, lr: Optional[float] = None,
@@ -333,71 +323,38 @@ class ASGDTrainer:
         with the merged global params from the table. ``timeout``: seconds
         to wait for the workers; one still running then is fatal (a
         wedged round fails instead of hanging)."""
-        import multiverso_tpu_torch as mvt
-
         cfg = self.config
         lr = cfg.lr if lr is None else lr
         shard = len(images) // self.workers
-        manager, dev = self.manager, self.device
-        results: Dict[int, dict] = {}
-        errors: Dict[int, BaseException] = {}
-        self.sync_seconds = []
+        dev = self.device
 
-        def work(slot: int) -> None:
-            with mvt.worker(slot):
-                view = manager.worker_view(device=True)
-                step = make_train_step(copy.deepcopy(self.model), cfg)
-                state = {k: {n: t.clone() for n, t in v.items()}
-                         for k, v in self._state0.items()}
-                state["params"] = view.params   # current global init
-                n_batches = 0
-                lo = slot * shard
-                # the shard goes to the device once; batches index it there
-                xs = _images(images[lo:lo + shard], dev)
-                ys = torch.from_numpy(
-                    np.asarray(labels[lo:lo + shard], np.int64)).to(dev)
-                order = np.arange(len(xs))
-                rng = np.random.default_rng(slot)
-                for _ in range(epochs):
-                    rng.shuffle(order)
-                    for i in range(0, len(xs) - batch + 1, batch):
-                        idx = torch.from_numpy(order[i:i + batch]).to(dev)
-                        state, _ = step(state, xs[idx], ys[idx], lr)
-                        n_batches += 1
-                        if n_batches % self.sync_freq == 0:
-                            t0 = time.perf_counter()
-                            state["params"] = (
-                                view.sync_pipelined(state["params"])
-                                if self.pipeline
-                                else view.sync(state["params"]))
-                            self.sync_seconds.append(time.perf_counter() - t0)
-                state["params"] = view.sync(state["params"])
-                results[slot] = state
+        def make_step(slot: int):
+            step = make_train_step(copy.deepcopy(self.model), cfg)
+            return lambda state, b: step(state, b[0], b[1], lr)
 
-        def guarded(slot: int) -> None:
-            try:
-                work(slot)
-            except BaseException as exc:  # reported by train()
-                errors[slot] = exc
+        def batches(slot: int):
+            lo = slot * shard
+            # the shard goes to the device once; batches index it there
+            xs = _images(images[lo:lo + shard], dev)
+            ys = torch.from_numpy(
+                np.asarray(labels[lo:lo + shard], np.int64)).to(dev)
+            order = np.arange(len(xs))
+            rng = np.random.default_rng(slot)
+            for _ in range(epochs):
+                rng.shuffle(order)
+                for i in range(0, len(xs) - batch + 1, batch):
+                    idx = torch.from_numpy(order[i:i + batch]).to(dev)
+                    yield xs[idx], ys[idx]
 
-        threads = [threading.Thread(target=guarded, args=(s,), daemon=True)
-                   for s in range(self.workers)]
-        for t in threads:
-            t.start()
-        deadline = None if timeout is None else time.monotonic() + timeout
-        for t in threads:
-            t.join(None if deadline is None
-                   else max(0.0, deadline - time.monotonic()))
-        if any(t.is_alive() for t in threads):
-            log.fatal("ASGD workers still running after %s s", timeout)
-        for slot in range(self.workers):
-            if slot not in results:
-                log.fatal("ASGD worker %d died before finishing: %r", slot,
-                          errors.get(slot))
+        def local_state(slot: int) -> dict:
+            return {k: {n: t.clone() for n, t in v.items()}
+                    for k, v in self._state0.items() if k != "params"}
+
+        results = self.run(make_step, batches, local_state, timeout)
         self.final_state = dict(results[0])
         # worker 0's last pull may predate peers' final pushes; re-read the
         # settled global value
-        self.final_state["params"] = manager.worker_view(device=True).params
+        self.final_state["params"] = self.global_params()
         return self.final_state
 
 

@@ -63,7 +63,6 @@ from __future__ import annotations
 
 import threading
 import time
-from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -75,8 +74,9 @@ import multiverso_tpu_torch as mvt
 from multiverso_tpu_torch import io as mv_io
 from multiverso_tpu_torch import log
 from multiverso_tpu_torch.config import get_flag
-from multiverso_tpu_torch.dashboard import Dashboard, monitor, observe
+from multiverso_tpu_torch.dashboard import monitor
 from multiverso_tpu_torch.models.vocab import Dictionary, HuffmanEncoder
+from multiverso_tpu_torch.obs.devtime import DeviceTime
 from multiverso_tpu_torch.ops.rows import ROW_GROUP, gather_rows
 from multiverso_tpu_torch.ops.sampling import (build_alias_table,
                                                unigram_negative_sampler)
@@ -739,43 +739,6 @@ def make_candidate_delta_step(config: Word2VecConfig):
                 torch.stack([loss_sum, w_sum]))
 
     return dstep
-
-
-class DeviceTime:
-    """The device time of a section that runs again and again on one
-    thread, by a pair of CUDA events recorded on the current stream around
-    each run. It never waits for the device: each :meth:`begin` first
-    records, into the ``name`` monitor and histogram, the earlier pairs
-    whose end event the device has passed (``query()``), oldest first, as
-    the stream completes them. ``event`` makes an event (a timing
-    ``torch.cuda.Event`` by default)."""
-
-    def __init__(self, name: str,
-                 event: Optional[Callable[[], object]] = None) -> None:
-        self.name = name
-        self._event = event or (lambda: torch.cuda.Event(enable_timing=True))
-        self._pending: deque = deque()
-
-    def harvest(self) -> None:
-        """Record every finished pair, oldest first; leave the rest."""
-        while self._pending and self._pending[0][1].query():
-            start, end = self._pending.popleft()
-            seconds = start.elapsed_time(end) / 1e3
-            Dashboard.get(self.name).observe(seconds)
-            observe(self.name, seconds)
-
-    def begin(self):
-        """Harvest, then record and return the start event of a run."""
-        self.harvest()
-        start = self._event()
-        start.record()
-        return start
-
-    def end(self, start) -> None:
-        """Record the run's end event; the pair waits for a later harvest."""
-        end = self._event()
-        end.record()
-        self._pending.append((start, end))
 
 
 class PSTrainer:

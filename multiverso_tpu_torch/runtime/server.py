@@ -274,6 +274,10 @@ class Server:
             else:
                 for msg in msgs:
                     self._dispatch_guarded(msg)
+            # park holding no request: a whole-model sync's tensors (its
+            # baseline, 3.75 GB for DeepSeek-V2-Lite's share) are freed
+            # when its caller drops them, not when the next message comes
+            msgs = msg = None
 
     def _admit(self, msgs: List[Message]) -> List[Message]:
         """Drain-time overload filter: drop expired-deadline Gets and Adds

@@ -16,12 +16,15 @@ model as a list of tensors whose sizes total the table's. Per leaf
 signature the server keeps a codec: flatten (one ``torch.cat``) and split
 (views of one flat tensor). The worker side does both, on its own thread:
 a request carries flat tensors, a reply comes back flat and is split into
-a :class:`LeafList`, so the dispatcher's share of a sync is a delta, the
-update and two clones. The worker snapshots the caller's leaves into a
+a :class:`LeafList`. The worker snapshots the caller's leaves into a
 fresh flat tensor before it submits, because torch trains in place: a
 queued request that held the caller's tensors would read whatever the next
 step wrote into them (a deferred apply under the deterministic or BSP
-server, a pipelined sync in flight). Every reply is a fresh tensor set,
+server, a pipelined sync in flight). The request owns that snapshot, so
+the dispatcher's share of a sync is the delta made in it, the update in
+place (linear updaters), the merged value copied back into it and one
+clone for the baseline: beside the table and the caller's own tensors a
+sync holds two full-size tensors. Every reply is a fresh tensor set,
 distinct from the table and from each other.
 
 Live migration (``extract_range``/``absorb_range``): the transfer reads
@@ -58,6 +61,17 @@ def _make_whole_update(updater: Updater):
     ``f(data, states, delta, worker, scalars) -> (data, states)``. It writes
     the updated values into ``data`` and the acting worker's state slices
     in place and returns the same tensors (the JAX version donated them)."""
+
+    if type(updater) in (Updater, SGDUpdater):
+        # linear and stateless: in place, with no full-size temporary
+        # (the result is the same sum)
+        sign = -1 if type(updater) is SGDUpdater else 1
+
+        def linear(data, states, delta, worker, scalars):
+            data.add_(delta, alpha=sign)
+            return data, states
+
+        return linear
 
     def f(data, states, delta, worker, scalars):
         w = worker if updater.per_worker_state else 0
@@ -203,12 +217,16 @@ class ArrayServer(ServerTable):
                 if flat.numel() != self.padded:
                     log.fatal("ArrayTable.%s: %d values, table padded size %d",
                               kind, flat.numel(), self.padded)
-            delta = flats[0] if kind == "leaves" else flats[0] - flats[1]
+            # the request owns its first flat (the worker's snapshot): the
+            # delta is made in it and the merged reply written into it, so
+            # a sync holds the snapshot and the reply's baseline beside
+            # the table, and no other full-size copy
+            delta = flats[0] if kind == "leaves" else flats[0].sub_(flats[1])
             worker, scalars = self._option_consts(option or AddOption())
             self._update(self.data, self.states, delta, worker, scalars)
             if kind == "leaves_push":
                 return None
-            merged = self.updater.access(self.data).clone()
+            merged = delta.copy_(self.updater.access(self.data))
             return merged if kind == "leaves" else (merged, merged.clone())
         want_get = False
         if len(request) == 3:  # fused add+get (device sync path)
