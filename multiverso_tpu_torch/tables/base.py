@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +20,32 @@ from multiverso_tpu_torch.dashboard import count, monitor
 from multiverso_tpu_torch.runtime.message import Message, MsgType, next_msg_id
 from multiverso_tpu_torch.runtime.zoo import Zoo
 from multiverso_tpu_torch.utils import Waiter
+
+
+#: Orders the pinned allocations of concurrent reads, so that each read's
+#: count of new page-locked blocks is its own.
+_PIN_LOCK = threading.Lock()
+#: The least read that goes through page-locked memory. On an H100 80GB
+#: HBM3 (700 W, torch 2.11, a reused block, medians of 10-200 reads) the
+#: page-locked read took 63-70 us from 256 B to 64 KiB against 21-29 us
+#: pageable (each look at the host allocator's stats costs 16 us), and 87
+#: against 127 us at 1 MiB, 0.44 against 1.38 ms at 16 MiB, 4.0 against
+#: 110 ms at 200 MB.
+_PINNED_READ_MIN_BYTES = 1 << 20
+
+
+def _pinned_copy(tensor: torch.Tensor) -> Tuple[np.ndarray, int]:
+    """(a C-contiguous numpy copy of a CUDA tensor over page-locked host
+    memory, 1 if the caching host allocator had to pin a new block for it
+    else 0). ``copy_`` compacts a strided view on the device first, then
+    moves the bytes in one DMA and waits for it."""
+    with _PIN_LOCK:
+        made = torch.cuda.host_memory_stats_as_nested_dict()["num_host_alloc"]
+        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        made = (torch.cuda.host_memory_stats_as_nested_dict()["num_host_alloc"]
+                - made)
+    host.copy_(tensor)
+    return host.numpy(), made
 
 
 class Completion:
@@ -231,10 +257,25 @@ class ServerTable:
         multi-process world assembles the logical value from every rank's
         read (``MatrixServer.logical_host``, ``ArrayServer.logical_host``),
         on the lockstep thread only. Timed as ``SERVER_HOST_READ`` (it waits
-        for the stream), its bytes counted in ``SERVER_HOST_READ_BYTES``."""
+        for the stream), its bytes counted in ``SERVER_HOST_READ_BYTES``.
+
+        From a CUDA device a read of 1 MiB or more lands in page-locked
+        memory from PyTorch's caching host allocator: one DMA, and no page
+        faults once a block of the size is cached. The reply's ``base`` is
+        the pinned tensor, so its block returns to the cache when the
+        caller drops the reply. Counted in ``SERVER_HOST_READ_PINNED_BYTES``,
+        and the reads that had to pin a new block in
+        ``SERVER_HOST_READ_PIN_NEW``."""
+        pinned = tensor.is_cuda and tensor.nbytes >= _PINNED_READ_MIN_BYTES
         with monitor("SERVER_HOST_READ"):
-            host = tensor.detach().to("cpu", copy=True).numpy()
+            if pinned:
+                host, new_blocks = _pinned_copy(tensor.detach())
+            else:
+                host = tensor.detach().to("cpu", copy=True).numpy()
         count("SERVER_HOST_READ_BYTES", host.nbytes)
+        if pinned:
+            count("SERVER_HOST_READ_PINNED_BYTES", host.nbytes)
+            count("SERVER_HOST_READ_PIN_NEW", new_blocks)
         return host
 
     def merge_add_requests(self, requests):
