@@ -41,8 +41,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bucket of sorted zipf ids into 100,001 x 128 fp32), where both scatters
    and the gather are first held exactly against ``index_add_`` and
    ``index_select``, and at the PS shape; the gather and ``index_select``
-   at the staged word2vec pull shape (the same 65,536-slot buckets). Each
-   kernel's time at the 64-slot bucket.
+   at the staged word2vec pull shape (the same 65,536-slot buckets).
 5. Parameter server: ``mvt.init(local_workers=4)`` on the card; four
    worker threads send 1024-row Adds (random ids, duplicates included) and
    1024-row Gets to a 1M x 50 default-updater matrix table (the kernel
@@ -51,8 +50,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel's launch count over this phase must be > 0. Then the table
    API's other paths (whole-table and device-resident IO, sparse
    staleness, an int32 table, the array table's device sync) against
-   numpy, and the host time of each stage of one Add and one Get with a
-   single worker. At the end of the drive the three tables (1.2 GB at
+   numpy. At the end of the drive the three tables (1.2 GB at
    logical dims, the AdaGrad state for 4 workers) are snapshotted with
    ``CheckpointDriver`` into a temporary directory; the runtime restarts,
    the tables are re-created and ``restore_tables`` loads them: data and
@@ -1060,34 +1058,6 @@ def time_gather(rows, table, id_sets, n_live: int, iters: int = 200):
     }
 
 
-def bucket64_times(rows, mesh, dev, iters: int = 400):
-    """Each kernel's CUDA-event ms per call at the smallest bucket,
-    64 unique random ids into the PS phase's 1M x 52 fp32 table, beside
-    the library call on the same ids."""
-    rng = np.random.default_rng(5)
-    C = mesh.padded_cols(COLS, np.float32)
-    table = torch.zeros((ROWS + 1, C), dtype=torch.float32, device=dev)
-    id_sets = [torch.from_numpy(rng.choice(ROWS, 64, replace=False)
-                                .astype(np.int32)).to(dev) for _ in range(PS_ID_SETS)]
-    deltas = torch.from_numpy(rng.standard_normal((64, C)).astype(np.float32)).to(dev)
-    it = iter(range(1 << 62))
-
-    def ids():
-        return id_sets[next(it) % PS_ID_SETS]
-
-    out = {
-        "scatter_add_rows": device_ms(lambda: rows.scatter_add_rows(table, ids(), deltas), iters),
-        "gather_rows": device_ms(lambda: rows.gather_rows(table, ids()), iters),
-        "scatter_add_rows_coalesced": device_ms(
-            lambda: rows.scatter_add_rows_coalesced(table, ids(), deltas), iters),
-        "index_add_": device_ms(lambda: table.index_add_(0, ids(), deltas), iters),
-        "index_select": device_ms(lambda: table.index_select(0, ids()), iters),
-    }
-    del table
-    torch.cuda.empty_cache()
-    return out
-
-
 def adagrad_mirror(mirror, g_sqr, ids, vals, lr, rho):
     """The AdaGrad row update on the host in float32, duplicates summed
     first: g += d*d; data -= lr*d/sqrt(g + rho)."""
@@ -1288,45 +1258,6 @@ def api_phase(mvt, device: str = "cuda") -> int:
         same(out.cpu().numpy(), np.full(4096, 2.0, np.float32))  # a copy
         same(a.get(), np.full(4096, 3.0, np.float32))
         return checks
-    finally:
-        mvt.shutdown()
-
-
-def host_breakdown(mvt, rows, device: str = "cuda", n: int = 100):
-    """Host time of each stage of a 1024-row Add and Get with ONE worker
-    and an idle dispatcher (µs per call, host clock, each stage ending in
-    a synchronize): where the end-to-end latency goes when nothing queues."""
-    from multiverso_tpu_torch.tables.matrix_table import merge_duplicate_rows
-
-    mvt.init(device=device, local_workers=1)
-    try:
-        table = mvt.create_table("matrix", ROWS, COLS)
-        srv = table._server_table
-        rng = np.random.default_rng(1)
-        reqs = [(rng.integers(0, ROWS, BATCH).astype(np.int32),
-                 rng.standard_normal((BATCH, COLS), dtype=np.float32))
-                for _ in range(n)]
-        ids_p, vals_p, _ = srv._bucket_ids(*merge_duplicate_rows(*reqs[0]))
-        stages = {
-            "merge_duplicate_rows": lambda i: merge_duplicate_rows(*reqs[i]),
-            "bucket_and_upload": lambda i: srv._bucket_ids(*reqs[i]),
-            "scatter_add_rows_call": lambda i: rows.scatter_add_rows(srv.data, ids_p, vals_p),
-            "gather_rows_call": lambda i: rows.gather_rows(srv.data, ids_p),
-            "process_add": lambda i: srv.process_add((reqs[i][0], reqs[i][1], None)),
-            "process_get": lambda i: srv.process_get((reqs[i][0], None)),
-            "api_add": lambda i: table.add(reqs[i][1], row_ids=reqs[i][0]),
-            "api_get": lambda i: table.get(reqs[i][0]),
-        }
-        out = {}
-        for name, fn in stages.items():
-            fn(0)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(n):
-                fn(i)
-            torch.cuda.synchronize()
-            out[name + "_us"] = (time.perf_counter() - t0) / n * 1e6
-        return out
     finally:
         mvt.shutdown()
 
@@ -7186,9 +7117,6 @@ def smoke(args, scratch: str) -> int:
     sgns_chain = sgns_phase(dev, card)
     print(f"launch floor: {floor} ms a call of fill_ on a one-element tensor, "
           f"back to back ({card})", flush=True)
-    print(f"kernel times, ms per call at the 64-slot bucket (64 random ids "
-          f"into 1M x 52 fp32; {card}): "
-          f"{json.dumps(bucket64_times(rows, mesh, dev))}", flush=True)
 
     # 4. the coalesced scatter; its main path is the word2vec push
     err, times = coalesced_phase(rows, mesh, dev, card)
@@ -7217,8 +7145,6 @@ def smoke(args, scratch: str) -> int:
           f"1024-row Get: gather {launches['gather_rows'] / metrics['matrix_gets']:.3f}")
     print(f"table API on the card: {api_phase(mvt)} checks equal to numpy",
           flush=True)
-    print(f"host breakdown, 1 worker, on {card}: "
-          f"{json.dumps(host_breakdown(mvt, rows))}", flush=True)
 
     # 6. word2vec
     w2v, w2v_launches = word2vec_phase(mvt, rows, "cuda", card)

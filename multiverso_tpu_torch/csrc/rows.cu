@@ -15,8 +15,8 @@
 // 64-row groups. Here a 2-D block of lanes moves 16-byte vectors; rows are
 // padded to whole vectors by the caller (parallel/mesh.py padded_cols).
 //
-// What bounds the gather and the scatter on an H100, by shape (PERF.md §6,
-// measured with rows_variants.py):
+// What bounds the gather and the scatter on an H100, by shape (PERF.md §6;
+// the design variants measured are in commit 29744b3):
 // * the parameter server's 1024-row bucket of 208-byte rows: bytes take
 //   0.13-0.19 us at 3.35 TB/s, against a launch floor of about 1.8-2.0 us
 //   (fill_ of one element, back to back) and a dependent chain:
@@ -32,11 +32,11 @@
 //   L2 (red.global.add) while the batch is latency-bound, so that its chain
 //   is id -> reduction, with no table row brought to the SM. Nothing the
 //   kernel can do removes the gather's id -> row dependence: it stays at
-//   launch floor + id + row + store (probes in rows_variants.cu);
+//   launch floor + id + row + store (chain probes, commit 29744b3);
 // * bytes: at large batches the grid is bounded and walks the batch, and
 //   the scatter goes through the SM (load, add, store, four vectors a lane
 //   in flight), whose bytes rate is above that of L2's atomics.
-// TMA bulk copies were measured (rows_variants.cu) and are not used: a
+// TMA bulk copies were measured (PERF.md §6) and are not used: a
 // staged output slab slows the gather, a bulk reduce does not flush
 // float32 subnormals as index_add_ does, and a delta slab gains 4% only
 // at the word2vec push, for a slab sized by rows x width, column chunks

@@ -83,11 +83,11 @@ class Geometry(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def launch_geometry(batch: int, vecs: int, sm_count: int, threads: int,
-                    lanes: int, waves: int = WAVES) -> Geometry:
+                    lanes: int) -> Geometry:
     """The launch for ``batch`` slots of ``vecs`` 16-byte vectors on a card
     of ``sm_count`` SMs. A row takes up to ``lanes`` lanes; a block takes
     as many slots as fit ``threads``, fewer while that leaves an SM
-    without a block; the grid stops at ``waves`` blocks an SM and walks
+    without a block; the grid stops at ``WAVES`` blocks an SM and walks
     the rest. No work is a grid of 0 blocks, which the kernels' entry
     points do not launch."""
     if batch < 0 or vecs < 0 or sm_count <= 0:
@@ -102,7 +102,7 @@ def launch_geometry(batch: int, vecs: int, sm_count: int, threads: int,
     block_y = max(1, min(MAX_SLOTS, threads // block_x, MAX_THREADS // block_x))
     while block_y > 1 and -(-batch // block_y) < sm_count:
         block_y -= 1
-    grid = min(-(-batch // block_y), sm_count * waves)
+    grid = min(-(-batch // block_y), sm_count * WAVES)
     return Geometry(grid, block_x, block_y)
 
 

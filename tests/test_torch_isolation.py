@@ -18,7 +18,7 @@ REPO = Path(__file__).resolve().parent.parent
 # the package, its example scripts (multiverso_tpu_torch/examples) and the
 # scripts beside it
 PORT_FILES = sorted((REPO / "multiverso_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "rows_variants.py", REPO / "asgd_probe.py",
+    REPO / "chip_smoke.py", REPO / "asgd_probe.py",
     REPO / "tests" / "torch_remote_child.py",
     REPO / "tests" / "torch_durable_primary_child.py"]
 EXAMPLES = ("resnet_asgd.py", "torch_asgd.py", "asgd_param_manager.py",
